@@ -1,6 +1,6 @@
 # orbital-tpu live viewer service.
-# For TPU serving use a TPU-enabled base image / node pool and install
-# jax[tpu]; this image runs the engine on CPU (same code path, smaller N).
+# For GPU serving use a CUDA base image / GPU node pool and install
+# jax[cuda12]; this image runs the engine on CPU (same code path, smaller N).
 FROM python:3.12-slim
 
 WORKDIR /srv

@@ -17,13 +17,13 @@ Differences (deliberate):
   * restart can resume from the JSONL cache instead of re-warming
     (``RESUME_FROM_CACHE=true``) — the reference writes the cache but never
     reads it back.
-  * stepping runs on the TPU engine (compiled KDK step per tick).
+  * stepping runs on the device engine (compiled KDK step per tick).
 
 Env config (same names/defaults as the reference, app/app.py:69-76):
 SIM_INTERVAL, SIM_INITIAL_STEPS, SIM_MAX_HISTORY, USE_CACHE, CACHE_FP,
 CACHE_EVERY_N; plus SIM_FPS, SIM_MOONS, RESUME_FROM_CACHE.
 
-TPU-scale demo mode (``SIM_SCENE=cluster``): instead of the 26-body solar
+Large-N demo mode (``SIM_SCENE=cluster``): instead of the 26-body solar
 system, serve a live ``SIM_N``-body (default 65536) virialized cluster
 advanced by the compiled rollout pipeline — the engine's actual regime.
 Each wall tick runs ``SIM_STEPS_PER_TICK`` compiled KDK steps on device;
@@ -136,9 +136,8 @@ if SIM_SCENE == "cluster":
             tree_max_chunks=_kch, tree_pair_entries=_entries)
     else:
         _cl_cfg = ot.SimConfig(dt=1e-3, G=1.0, eps2=1e-4)
-    # the single-program tree step trips this platform's compile helper
-    # at levels=8 AND N >= 512k (same gate as simulate._STAGED_MIN_*);
-    # the staged host loop is the supported path there
+    # at levels=8 AND N >= 512k the staged host loop runs the tree (same
+    # gate as simulate._STAGED_MIN_*)
     _cl_staged = (SIM_FORCE == "tree" and SIM_N >= 524288
                   and _cl_cfg.tree_levels >= 8)
     _state0 = ot.make_state(_pos, _vel, _mass, np.full(SIM_N, 1e-4),
@@ -218,7 +217,7 @@ def _unwrap_unit(val):
 
 
 def build_cluster_snapshot() -> dict:
-    """Decimated TPU-scale snapshot: one sampled device->host fetch of the
+    """Decimated large-N snapshot: one sampled device->host fetch of the
     view subset, same payload field names as the solar snapshot so the
     viewer and /api/state consumers are unchanged."""
     import numpy as np

@@ -3,5 +3,5 @@ backed by orbital-tpu.
 
 Existing user code written against ``trevormcguire/orbital-physics``
 (``from core.engine import SimulationEngine`` etc.) runs unchanged on the
-TPU engine. New code should import from ``orbital_tpu`` directly.
+device engine. New code should import from ``orbital_tpu`` directly.
 """

@@ -1,20 +1,19 @@
-"""Compiled-kernel validation on real TPU hardware (skipped off-TPU)."""
+"""Compiled-kernel and path validation on the GPU (skipped elsewhere by
+the ``gpu`` fixture of conftest.py).
+
+Tolerances: the kernels sum in float32 in another order than the dense
+XLA oracle, so 1e-5 relative to the largest acceleration is rounding
+level at N = 4096."""
 import numpy as np
 import pytest
 
-jax = pytest.importorskip("jax")
-
-if jax.default_backend() != "tpu":
-    pytest.skip("no TPU backend", allow_module_level=True)
-
 import orbital_tpu as ot
 from orbital_tpu.engine.state import make_state
-from orbital_tpu.ops.collisions import bounce_deltas
+from orbital_tpu.ops.collisions import bounce_deltas, bounce_deltas_chunked
 from orbital_tpu.ops.forces import pairwise_acc_dense
-from orbital_tpu.ops.fused_rollout import fused_rollout
-from orbital_tpu.ops.pallas_collisions import bounce_deltas_pallas
 from orbital_tpu.ops.pallas_forces import pairwise_acc_pallas
-from orbital_tpu.ops.pallas_forces_sym import pairwise_acc_pallas_sym
+
+pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +32,7 @@ def _relerr(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
-def test_pallas_forces_on_tpu(cluster):
+def test_pallas_forces_on_gpu(cluster):
     pos, _, mass, _ = cluster
     a_ref, U_ref = pairwise_acc_dense(pos, mass, G=1.0, eps2=1e-4)
     a, U = pairwise_acc_pallas(pos, mass, G=1.0, eps2=1e-4)
@@ -41,36 +40,20 @@ def test_pallas_forces_on_tpu(cluster):
     assert abs(float(U) - float(U_ref)) / abs(float(U_ref)) < 1e-5
 
 
-def test_pallas_sym_on_tpu(cluster):
-    pos, _, mass, _ = cluster
-    a_ref, _ = pairwise_acc_dense(pos, mass, G=1.0, eps2=1e-4)
-    a, _ = pairwise_acc_pallas_sym(pos, mass, G=1.0, eps2=1e-4)
-    assert _relerr(a, a_ref) < 1e-5
-
-
-def test_pallas_collisions_on_tpu(cluster):
+def test_bounce_chunked_on_gpu(cluster):
+    """The large-N bounce sweep (row-chunked XLA) equals the dense one."""
     pos, vel, mass, radius = cluster
-    dp_ref, dv_ref = bounce_deltas(pos, vel, mass, radius,
-                                   np.ones(len(mass), bool), restitution=0.9)
-    dp, dv = bounce_deltas_pallas(pos, vel, mass, radius, restitution=0.9)
+    alive = np.ones(len(mass), bool)
+    dp_ref, dv_ref = bounce_deltas(pos, vel, mass, radius, alive,
+                                   restitution=0.9)
+    dp, dv = bounce_deltas_chunked(pos, vel, mass, radius, alive,
+                                   restitution=0.9)
     assert float(np.abs(np.asarray(dv_ref)).max()) > 0
     np.testing.assert_allclose(np.asarray(dv), np.asarray(dv_ref), atol=1e-4)
     np.testing.assert_allclose(np.asarray(dp), np.asarray(dp_ref), atol=1e-5)
 
 
-def test_fused_rollout_on_tpu(cluster):
-    pos, vel, mass, _ = cluster
-    st = make_state(pos.astype(np.float64), vel.astype(np.float64),
-                    mass.astype(np.float64) / len(mass), precision="ds32")
-    cfg = ot.SimConfig(dt=1e-3, G=1.0, eps2=1e-4, force_impl="pallas")
-    st = ot.init_forces(st, cfg)
-    ref, _ = ot.rollout_jit(st, cfg, 10)
-    out = fused_rollout(st, cfg, 10)
-    np.testing.assert_allclose(np.asarray(out.pos), np.asarray(ref.pos),
-                               atol=1e-5)
-
-
-def test_ds32_drift_on_tpu(cluster):
+def test_ds32_drift_on_gpu(cluster):
     from bench import energy_hybrid, make_cluster
 
     pos, vel, mass, eps2 = make_cluster(4096)
@@ -83,7 +66,7 @@ def test_ds32_drift_on_tpu(cluster):
     assert abs((E1 - E0) / E0) < 1e-6
 
 
-def test_fused_detect_on_tpu(cluster):
+def test_fused_detect_on_gpu(cluster):
     from orbital_tpu.ops.collisions import count_contacts_dense
     from orbital_tpu.ops.pallas_forces import pairwise_acc_detect_pallas
 
@@ -97,9 +80,9 @@ def test_fused_detect_on_tpu(cluster):
     assert _relerr(a, a_ref) < 1e-5
 
 
-def test_pallas_jerk_on_tpu(cluster):
+def test_pallas_jerk_on_gpu(cluster):
     from orbital_tpu.ops.forces import accel_jerk_dense
-    from orbital_tpu.ops.pallas_jerk import accel_jerk_pallas
+    from orbital_tpu.ops.pallas_forces import accel_jerk_pallas
 
     pos, vel, mass, _ = cluster
     a_ref, j_ref, _ = accel_jerk_dense(pos, vel, mass, G=1.0, eps2=1e-4)
@@ -108,17 +91,7 @@ def test_pallas_jerk_on_tpu(cluster):
     assert _relerr(j, j_ref) < 1e-5
 
 
-def test_pallas_mxu_on_tpu(cluster):
-    """Gram-formulation kernel at its documented (reduced) accuracy."""
-    from orbital_tpu.ops.pallas_forces_mxu import pairwise_acc_pallas_mxu
-
-    pos, _, mass, _ = cluster
-    a_ref, _ = pairwise_acc_dense(pos, mass, G=1.0, eps2=1e-4)
-    a, _ = pairwise_acc_pallas_mxu(pos, mass, G=1.0, eps2=1e-4)
-    assert _relerr(a, a_ref) < 5e-3
-
-
-def test_pm_on_tpu():
+def test_pm_on_gpu():
     from orbital_tpu.ops.pm import pm_acc_potential
 
     rng = np.random.default_rng(1)
@@ -133,7 +106,7 @@ def test_pm_on_tpu():
     assert rms < 0.03
 
 
-def test_p3m_on_tpu():
+def test_p3m_on_gpu():
     from orbital_tpu.ops.p3m import p3m_acc_potential
 
     rng = np.random.default_rng(3)
@@ -149,10 +122,10 @@ def test_p3m_on_tpu():
     assert rms < 6e-3
 
 
-def test_tree_on_tpu():
+def test_tree_on_gpu():
     """Conv far field + near-field sweeps compile and match the dense
-    oracle on hardware (the MXU conv path and the HIGHEST-precision taps
-    only exist on TPU — CPU tests run f32 matmuls regardless)."""
+    oracle on the card, where a float32 conv could run in TF32 without
+    the HIGHEST-precision taps (CPU tests run full float32 regardless)."""
     from orbital_tpu.ops.tree import tree_acc_potential, tree_occupancy_probe
 
     rng = np.random.default_rng(5)
@@ -176,10 +149,8 @@ def test_tree_on_tpu():
         np.asarray(mass)[:, None] * a).max()
 
 
-def test_tree_level8_fits_hbm_on_tpu():
-    """levels=8 (16.7M finest cells) compiles and runs on one chip — the
-    per-channel 1-D grid layout keeps it far from the lane-padding OOM
-    that a [m^3, C] layout measured (8.6 GB)."""
+def test_tree_level8_fits_hbm_on_gpu():
+    """levels=8 (16.7M finest cells) compiles and runs on one card."""
     from orbital_tpu.ops.tree import tree_acc_potential
 
     rng = np.random.default_rng(6)
@@ -196,9 +167,9 @@ def test_tree_level8_fits_hbm_on_tpu():
     assert int(ov) == 0
 
 
-def test_yoshida4_on_tpu(cluster):
+def test_yoshida4_on_gpu(cluster):
     """The composed symplectic stepper compiles and conserves through the
-    Pallas force path at hardware precision (ds32 state)."""
+    resolved force path on the card (ds32 state)."""
     from orbital_tpu.engine.rollout import init_forces, rollout_jit
     from orbital_tpu.ops import diagnostics as diag
 
@@ -213,9 +184,9 @@ def test_yoshida4_on_tpu(cluster):
     assert abs((e1 - e0) / e0) < 1e-4
 
 
-def test_block_hermite_on_tpu():
+def test_block_hermite_on_gpu():
     """Fast/slow Hermite: the cond-skipped substep loop, the F x N subset
-    evaluation, and the scatter-merge compile and run on hardware."""
+    evaluation, and the scatter-merge compile and run on the card."""
     from orbital_tpu.engine.rollout import init_forces, rollout_jit
 
     s_b, m_b = 0.02, 0.5
@@ -246,10 +217,10 @@ def test_block_hermite_on_tpu():
     assert abs(sep - s_b) / s_b < 0.1  # binary survives at macro dt
 
 
-def test_tree_probed_budgets_on_tpu():
+def test_tree_probed_budgets_on_gpu():
     """Probe-sized class budgets (tree_class_probe -> max_big /
-    max_frontier) reproduce the heuristic-budget result bit-for-bit with
-    zero overflow on hardware (round-4: VERDICT r1 #2)."""
+    max_frontier) reproduce the heuristic-budget result with zero
+    overflow on the card."""
     from orbital_tpu.ops.tree import tree_acc_potential, tree_class_probe
 
     rng = np.random.default_rng(7)
@@ -270,15 +241,18 @@ def test_tree_probed_budgets_on_tpu():
         max_big=max(256, int(nbig) + 32),
         max_frontier=max(256, int(nfront) + 32))
     assert int(ov_ref) == 0 and int(ov) == 0
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(a_ref))
-    assert float(U) == float(U_ref)
+    # the GPU's scatter-adds are atomic, so two programs sum in different
+    # orders: equal to float32 rounding, not bit for bit
+    scale = float(np.sqrt(np.mean(np.sum(np.asarray(a_ref) ** 2, -1))))
+    np.testing.assert_allclose(np.asarray(a), np.asarray(a_ref),
+                               atol=1e-6 * scale)
+    assert float(U) == pytest.approx(float(U_ref), rel=1e-6)
 
 
-def test_tree_pairs_on_tpu():
+def test_tree_pairs_on_gpu():
     """Chunk-pair near field (tree_near='pairs', z-trimmed octave runs)
-    matches the cells sweep on hardware with zero overflow — and the
-    compiled program actually runs at a realistic 65k shape (compile
-    limits are the platform risk for the multi-octave switch)."""
+    matches the cells sweep on the card with zero overflow, at a
+    realistic 65k shape."""
     from orbital_tpu.ops.tree import (tree_acc_potential,
                                       tree_occupancy_probe,
                                       tree_pairs_budgets)
@@ -307,38 +281,24 @@ def test_tree_pairs_on_tpu():
     assert float(U_p) == pytest.approx(float(U_c), rel=1e-5)
 
 
-def test_respa_worklist_sweep_on_tpu():
-    """Worklist near sweep == streaming jbl sweep on hardware (the
-    interpret-mode parity in tests/ can't catch Mosaic lowering bugs in
-    the run-start accumulate or the scalar-prefetch index maps)."""
-    from orbital_tpu.ops.neighbor import (SENTINEL_POS, neighbor_budgets,
-                                          neighbor_geometry, pack_slots)
-    from orbital_tpu.ops.neighbor_pallas import (near_acc_slots_pallas,
-                                                 near_acc_slots_pallas_wl)
+def test_ring_block_kernel_on_gpu(cluster):
+    """The ring's rectangular block kernel against the chunked XLA block
+    (the same partial sums of block j on block i)."""
+    from orbital_tpu.ops.forces import block_acc_chunked
+    from orbital_tpu.ops.pallas_forces import block_acc_pallas
 
-    rng = np.random.default_rng(4)
-    n = 8192
-    pos = rng.normal(size=(n, 3)).astype(np.float32)
-    mass = rng.uniform(0.5, 1.5, n).astype(np.float32) / n
-    eps2 = 1e-4
-    rc = 5.0 * float(np.sqrt(eps2))
-    cell = 2.0 * rc
-    m_grid, k_ch, w_blk, q = neighbor_budgets(
-        pos, cell=cell, chunk=32, rj=4, with_wl=True)
-    import jax.numpy as jnp
-    g = neighbor_geometry(jnp.asarray(pos), jnp.ones(n, bool), cell=cell,
-                          m_grid=m_grid, chunk=32, max_chunks=k_ch,
-                          w_blk=w_blk, rj=4, wl_entries=q)
-    n_slots = (k_ch + 4) * 32
-    pk = lambda v, fill: pack_slots(g["slot"], jnp.asarray(v), n_slots, fill)
-    ch = (pk(pos[:, 0], SENTINEL_POS), pk(pos[:, 1], SENTINEL_POS),
-          pk(pos[:, 2], SENTINEL_POS), pk(mass, 0.0))
-    kw = dict(r1=0.5 * rc, rc=rc, G=1.0, eps2=eps2, chunk=32, rj=4)
-    a_s, pe_s = near_acc_slots_pallas(*ch, g["jbl"], **kw)
-    a_w, pe_w = near_acc_slots_pallas_wl(
-        *ch, g["wl_i"], g["wl_jb"], g["wl_first"], g["wl_row_live"], **kw)
-    scale = float(jnp.max(jnp.abs(a_s))) + 1e-12
-    np.testing.assert_allclose(np.asarray(a_w), np.asarray(a_s),
-                               atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(pe_w), np.asarray(pe_s),
-                               rtol=1e-5, atol=1e-7)
+    pos, _, mass, _ = cluster
+    a, pe = block_acc_pallas(pos[:1024], pos, mass, G=1.0, eps2=1e-4)
+    a_ref, pe_ref = block_acc_chunked(pos[:1024], pos, mass, G=1.0,
+                                      eps2=1e-4)
+    assert _relerr(a, a_ref) < 1e-5
+    assert _relerr(pe, pe_ref) < 1e-5
+
+
+def test_auto_path_is_the_gpu_kernel():
+    """force_impl='auto' above 4096 bodies resolves to the GPU kernel."""
+    from orbital_tpu.ops import backend
+
+    assert backend.platform() == "gpu"
+    assert backend.exact_sweep_impl(65536) == "pallas"
+    assert backend.exact_sweep_impl(4096) == "dense"

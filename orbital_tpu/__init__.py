@@ -1,8 +1,9 @@
-"""orbital-tpu: a TPU-native gravitational N-body framework.
+"""orbital-tpu: a JAX gravitational N-body framework for the GPU.
 
-Rebuild of the capabilities of ``trevormcguire/orbital-physics`` designed
-for TPU hardware: Keplerian scene definition on host, structure-of-arrays
-state in HBM, softened O(N^2) gravity as dense XLA / tiled Pallas kernels,
+Rebuild of the capabilities of ``trevormcguire/orbital-physics`` as
+accelerator array programs: Keplerian scene definition on host,
+structure-of-arrays state in device memory, softened O(N^2) gravity as XLA
+sweeps and a Pallas GPU kernel,
 leapfrog (KDK) stepping under ``lax.scan``, masked collision handling,
 vmappable ensembles, and shard_map ring sharding across chips.
 """

@@ -1,6 +1,6 @@
 """Double-single ("ds") compensated float32 arithmetic.
 
-TPU compute is fastest in float32 (f64 is software-emulated), but a leapfrog
+Accelerator compute is fastest in float32, but a leapfrog
 integration accumulates millions of tiny position/velocity increments whose
 round-off random-walks the energy. The classic fix (used by GPU N-body
 codes) is to keep the *accumulated state* as an unevaluated sum of two

@@ -16,8 +16,9 @@ Differences from the reference (deliberate):
     the Object constructor, core/physics.py:184).
   * checkpoints are a real round trip (``checkpoint()`` / ``resume()``);
     the reference writes JSONL frames but never reads them back.
-  * on TPU, SI-magnitude scenes are internally rescaled to natural units
-    (exact change of units) so float32/ds32 state stays well-conditioned.
+  * on the device, SI-magnitude scenes are internally rescaled to natural
+    units (exact change of units) so float32/ds32 state stays
+    well-conditioned.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ __all__ = ["SimulationEngine", "run_simulation"]
 
 
 class SimulationEngine:
-    """Advance an orbital simulation on TPU with a host-side object view."""
+    """Advance an orbital simulation on the device with a host-side object
+    view."""
 
     def __init__(
         self,
@@ -228,10 +230,10 @@ class SimulationEngine:
     _HISTORY_FLOAT_BUDGET = 30_000_000
     # recorded floats per compiled rollout window (device ys + one transfer)
     _WINDOW_FLOAT_BUDGET = 2**25
-    # pair-evaluations per compiled program: single XLA programs running
-    # >> 1 min can trip this platform's TPU worker watchdog (DESIGN.md §7),
-    # so cap steps-per-rollout by N (2^27/N = ~2048 steps at N=65536,
-    # ~50 s at the measured rate; small N is unconstrained in practice)
+    # pair-evaluations per compiled program: cap steps-per-rollout by N
+    # (2^27/N = ~2048 steps at N=65536; small N is unconstrained in
+    # practice) so a long run() returns to the host for history and frame
+    # streaming at a bounded interval
     _WATCHDOG_PAIR_BUDGET = 2**27
 
     def _max_steps_per_program(self) -> int:
@@ -316,7 +318,7 @@ class SimulationEngine:
     def run(self, steps: int) -> None:
         """Advance ``steps`` steps in compiled rollouts (windowed device ->
         host streaming), preserving history and throttled frame-cache
-        semantics at TPU scale: history is appended every
+        semantics at large N: history is appended every
         ``history_every``-th step (every step when 1; "auto" bounds retained
         memory), and JSONL frames are written from the *exact* synced state
         at each frame step — runs are split at frame boundaries, so frames

@@ -42,7 +42,7 @@ def _accumulate(hi, lo: Optional[jax.Array], *increments):
 
 
 # above this body count the dense [N, N] bounce sweep gives way to the
-# tiled Pallas kernel (ops.pallas_collisions)
+# row-chunked one (ops.collisions.bounce_deltas_chunked)
 _DENSE_BOUNCE_MAX_N = 4096
 
 
@@ -94,11 +94,10 @@ def _apply_collisions(
         )
     if cfg.collisions == "bounce":
         if state.n_bodies > _DENSE_BOUNCE_MAX_N:
-            from ..ops.pallas_collisions import bounce_deltas_pallas
-
-            dpos, dvel = bounce_deltas_pallas(
+            dpos, dvel = coll.bounce_deltas_chunked(
                 state.pos, state.vel, state.mass, state.radius, state.alive,
                 restitution=cfg.restitution,
+                chunk=min(cfg.chunk, state.n_bodies),
             )
         else:
             dpos, dvel = coll.bounce_deltas(

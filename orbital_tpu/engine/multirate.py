@@ -1,10 +1,9 @@
 """Multirate (RESPA / Ahmad-Cohen-style) leapfrog: held far force, exact
 switched near force every substep.
 
-The headline exact kernel is at its VPU arithmetic ceiling (DESIGN.md §1),
-and its per-step cost is dominated by the O(N^2) far field — which at the
-benchmark's time step changes ~100x more slowly than the close-encounter
-dynamics the step size actually resolves. The classic collisional-N-body
+The exact sweep's per-step cost is dominated by the O(N^2) far field,
+which at the benchmark's time step changes ~100x more slowly than the
+close-encounter dynamics the step size actually resolves. The classic collisional-N-body
 answer (Ahmad & Cohen 1973 neighbor scheme; NBODY6) recast as the
 symplectic impulse-MTS / r-RESPA splitting (Tuckerman, Berne & Martyna
 1992) is to integrate the two on different clocks:
@@ -13,7 +12,7 @@ symplectic impulse-MTS / r-RESPA splitting (Tuckerman, Berne & Martyna
 
 ``V_near`` is the smooth switched short-range force of ``ops/neighbor.py``
 (S(r) = 1 below r1, 0 above rc); ``V_far = V_total - V_near`` needs ONE
-exact O(N^2) evaluation (the shipped Pallas kernel, which stays the single
+exact O(N^2) evaluation (the resolved exact sweep, which stays the single
 source of truth for total forces) per K substeps — the far force is applied
 as boundary impulses and HELD (not extrapolated) in between, which keeps
 the composition symplectic: both split Hamiltonians are fixed and smooth,
@@ -24,7 +23,7 @@ Per macro window (K substeps):
   1. freeze the neighbor geometry at the sync positions (skin margin
      covers all motion inside the window — violations are counted);
   2. pack state into chunk-slot space ONCE; the whole inner loop is
-     elementwise f32/ds32 arithmetic plus the Pallas near sweep — no
+     elementwise f32/ds32 arithmetic plus the near sweep — no
      per-substep gathers, scatters, sorts, or host round-trips;
   3. close with one exact force evaluation at the end positions;
      ``a_far = a_total - a_near`` at identical positions, so the split
@@ -52,9 +51,6 @@ from jax import lax
 from ..ops.neighbor import (SENTINEL_POS, near_acc_slots, neighbor_geometry,
                             pack_rows, pack_slots, unpack_rows,
                             unpack_slots)
-from ..ops.neighbor_pallas import (near_acc_slots_pallas,
-                                   near_acc_slots_pallas_sb,
-                                   near_acc_slots_pallas_wl)
 from ..utils.config import SimConfig
 from .dsfloat import ds_add
 from .rollout import Trajectory, _snapshot
@@ -72,46 +68,15 @@ def _fills_pos(dtype):
     return jnp.asarray([SENTINEL_POS] * 3 + [0.0], dtype)
 
 
-def _resolve_sweep(cfg: SimConfig, dtype):
+def _resolve_sweep(cfg: SimConfig):
     """Returns ``sweep(xs, ys, zs, ms, geom, i0=None) -> (acc, pe)`` over
-    the slot channels, closing over the chosen backend. The worklist
-    Pallas kernel is used when ``cfg.respa_wl_entries > 0`` (compacted
-    real entries — no sentinel-tile grid steps); otherwise the padded-jbl
-    streaming kernel / XLA oracle. ``i0`` (dynamic chunk offset, paired
-    with a row-sliced ``geom["jbl"]``) restricts the sweep to one mesh
-    shard's i-chunks; the worklist backend has no offset plumbing
-    (entries are compacted globally), so sharded callers must size
-    ``respa_wl_entries = 0``."""
-    impl = cfg.respa_impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if dtype != jnp.float32:
-        impl = "xla"  # Pallas path is f32-only; f64 is the CPU golden path
-    kw = dict(r1=cfg.respa_r1 if cfg.respa_r1 > 0 else 0.5 * cfg.respa_rc,
-              rc=cfg.respa_rc, G=cfg.G, eps2=cfg.eps2,
-              chunk=cfg.respa_chunk, rj=cfg.respa_rj)
-    interp = impl == "pallas_interpret"
-    if impl == "pallas_sb":
-        f = partial(near_acc_slots_pallas_sb, **kw)
-        return lambda xs, ys, zs, ms, geom, i0=None: f(
-            xs, ys, zs, ms, geom["jbl"], i0=i0)
-    if impl in ("pallas", "pallas_interpret") and cfg.respa_wl_entries > 0:
-        def sweep_wl(xs, ys, zs, ms, geom, i0=None):
-            if i0 is not None:
-                raise ValueError(
-                    "the worklist near sweep does not shard; size "
-                    "respa_wl_entries=0 under a mesh")
-            return near_acc_slots_pallas_wl(
-                xs, ys, zs, ms, geom["wl_i"], geom["wl_jb"],
-                geom["wl_first"], geom["wl_row_live"],
-                interpret=interp, **kw)
-        return sweep_wl
-    if impl == "pallas":
-        f = partial(near_acc_slots_pallas, **kw)
-    elif impl == "pallas_interpret":
-        f = partial(near_acc_slots_pallas, interpret=True, **kw)
-    else:
-        f = partial(near_acc_slots, **kw)
+    the slot channels: the XLA near sweep ``near_acc_slots``. ``i0``
+    (dynamic chunk offset, paired with a row-sliced ``geom["jbl"]``)
+    restricts the sweep to one mesh shard's i-chunks."""
+    f = partial(near_acc_slots,
+                r1=cfg.respa_r1 if cfg.respa_r1 > 0 else 0.5 * cfg.respa_rc,
+                rc=cfg.respa_rc, G=cfg.G, eps2=cfg.eps2,
+                chunk=cfg.respa_chunk, rj=cfg.respa_rj)
     return lambda xs, ys, zs, ms, geom, i0=None: f(
         xs, ys, zs, ms, geom["jbl"], i0=i0)
 
@@ -163,10 +128,6 @@ def make_respa_macro(
                 f"respa_max_chunks={K_ch} must divide across {n_shards} "
                 "shards (neighbor_budgets rounds up when simulate() "
                 "passes a mesh)")
-        if cfg.respa_wl_entries > 0:
-            raise ValueError(
-                "sharded respa requires respa_wl_entries=0 (the worklist "
-                "sweep compacts entries globally and cannot shard)")
         kd = K_ch // n_shards
     fuse_detect = force_detect_fn is not None and cfg.collisions != "none"
 
@@ -182,7 +143,7 @@ def make_respa_macro(
             geom = neighbor_geometry(
                 state.pos, state.alive, cell=cfg.respa_cell,
                 m_grid=cfg.respa_m, chunk=C, max_chunks=K_ch, w_blk=W_blk,
-                rj=RJ, wl_entries=cfg.respa_wl_entries)
+                rj=RJ)
             zcol = jnp.zeros((state.n_bodies, 1), state.pos.dtype)
             geom["pos0_build"] = pack_rows(
                 geom["slot"], jnp.concatenate([state.pos, zcol], axis=1),
@@ -192,7 +153,7 @@ def make_respa_macro(
     def macro(state: NBodyState,
               geom: Optional[dict] = None) -> tuple[NBodyState, dict]:
         ds = state.pos_lo is not None
-        sweep = _resolve_sweep(cfg, state.pos.dtype)
+        sweep = _resolve_sweep(cfg)
         if geom is None:
             geom = build_geom(state)
         slot = geom["slot"]
@@ -332,13 +293,11 @@ def make_respa_macro(
         diag = dict(
             overflow=(geom["cap_overflow"]
                       + jnp.sum(dropped, dtype=jnp.int32)
-                      + geom["w_overflow"]
-                      + geom.get("q_overflow", 0)),
+                      + geom["w_overflow"]),
             # split counters: which budget blew (cap = chunk table,
-            # w = per-chunk blocks, q = worklist entries)
+            # w = per-chunk blocks)
             cap_overflow=geom["cap_overflow"],
             w_overflow=geom["w_overflow"],
-            q_overflow=jnp.asarray(geom.get("q_overflow", 0), jnp.int32),
             skin_violation=skin_violation,
         )
         return new, diag
@@ -386,7 +345,7 @@ def respa_rollout(
 
     zero = jnp.zeros((), jnp.int32)
     diag0 = dict(overflow=zero, cap_overflow=zero, w_overflow=zero,
-                 q_overflow=zero, skin_violation=zero)
+                 skin_violation=zero)
     geom0 = macro.build_geom(state)
     if record_every <= 0:
         (final, _, diag), _ = lax.scan(
@@ -424,9 +383,8 @@ def respa_rollout_dyn(
 ) -> tuple[NBodyState, dict]:
     """Advance ``n_macros`` macro windows with the trip count as a DEVICE
     value: one compiled program serves every chunk size. Long-horizon
-    drivers (bench drift loops, host-chunked rollouts under the worker
-    watchdog) would otherwise pay a fresh multi-minute remote compile per
-    distinct chunk length (DESIGN §7). No recording — use
+    drivers (bench drift loops, host-chunked rollouts) would otherwise pay
+    a fresh compile per distinct chunk length. No recording — use
     :func:`respa_rollout` when snapshots are needed."""
     from .rollout import resolve_force_detect_fn, resolve_force_fn
 
@@ -445,7 +403,7 @@ def respa_rollout_dyn(
 
     zero = jnp.zeros((), jnp.int32)
     diag0 = dict(overflow=zero, cap_overflow=zero, w_overflow=zero,
-                 q_overflow=zero, skin_violation=zero)
+                 skin_violation=zero)
     final, _, diag = lax.fori_loop(
         0, n_macros, body, (state, macro.build_geom(state), diag0))
     return final, diag

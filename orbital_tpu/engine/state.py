@@ -1,8 +1,8 @@
 """Structure-of-arrays device state for the N-body system.
 
 The reference keeps per-body Python ``Object``s and a dict of uuid-keyed
-accelerations (reference: core/physics.py:161-191, 125-159). On TPU that
-becomes one immutable pytree of HBM-resident arrays — positions, velocities,
+accelerations (reference: core/physics.py:161-191, 125-159). Here that
+becomes one immutable pytree of device-resident arrays — positions, velocities,
 masses, radii, an alive mask (masks replace Python-list removal on merges),
 the cached accelerations of the last force evaluation, and scalar clock /
 bookkeeping — so a simulation step is a pure function ``state -> state``
@@ -11,9 +11,9 @@ that XLA fuses into a single program under ``jax.jit`` / ``lax.scan``.
 Precision policy (see ``dsfloat``):
   * ``f32``  — plain float32 state; fastest, fine for short rollouts.
   * ``ds32`` — float32 state with compensation arrays ``pos_lo/vel_lo``
-               (double-single, ~1e-15 effective resolution); the default on
-               TPU: meets the 1e-6 energy-drift budget at solar-system
-               scales while all force math stays in f32.
+               (double-single, ~1e-15 effective resolution); the default
+               without x64: meets the 1e-6 energy-drift budget at
+               solar-system scales while all force math stays in f32.
   * ``f64``  — float64 state (requires ``jax_enable_x64``); the CPU golden
                path against the reference.
 

@@ -9,7 +9,7 @@ mass estimation). ``fit_initial_conditions`` wraps the standard recipe:
     params -> NBodyState -> lax.scan rollout -> recorded positions
            -> masked MSE against observations -> optax optimizer
 
-Design notes (TPU-first):
+Design notes:
   * The loss rolls out under ``jax.checkpoint``-free scan — at fitting
     problem sizes (tens of bodies, thousands of steps) the O(steps)
     residual storage of reverse-mode AD fits easily; pass
@@ -182,7 +182,7 @@ def fit_initial_conditions(
         )
         st = init_forces(st, cfg, force_fn)
         _, traj = rollout(st, cfg, steps, record_every=record_every,
-                          force_fn=force_fn, fused="never")
+                          force_fn=force_fn)
         resid = (traj.pos - obs) * w3
         return jnp.sum(resid * resid) / jnp.maximum(jnp.sum(weights), 1.0)
 
@@ -327,7 +327,7 @@ def fit_orbital_elements(
     def loss_fn(p):
         st = init_forces(build_state(p), cfg, force_fn)
         _, traj = rollout(st, cfg, steps, record_every=record_every,
-                          force_fn=force_fn, fused="never")
+                          force_fn=force_fn)
         # observations are central-relative
         rel = traj.pos[:, 1:] - traj.pos[:, :1]
         resid = (rel - obs) * w3

@@ -7,7 +7,7 @@ and conversion anchors for the SI (``STANDARD``) and astronomical
 (``ASTRO``) unit systems, frozen ``IntegratorParams`` defaults, and
 ``get_unit_profile``.
 
-Additions for the TPU build: :meth:`UnitProfile.rescaled` derives an
+Additions over the reference: :meth:`UnitProfile.rescaled` derives an
 internal "natural units" profile (distance/mass/time scales chosen so state
 is O(1)), which keeps float32 device state well-conditioned; see
 ``orbital_tpu.engine.state``.

@@ -1,7 +1,7 @@
 """Bundled example scenarios (reference: core/examples.py:11-233).
 
 The four presets keep the reference's signatures, initial conditions, and
-outputs (drift printout + plot/video), but run on the TPU engine: each
+outputs (drift printout + plot/video), but run on the device engine: each
 ``run_simulation`` call executes compiled ``lax.scan`` chunks on device.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 API-parity layer over the reference's ``core/physics.py`` object model
 (reference: core/physics.py:16-40, 161-332, 452-535). These are *scene
-construction and inspection* objects only: the TPU engine compiles an
+construction and inspection* objects only: the engine compiles an
 ``ObjectCollection`` into structure-of-arrays device state
 (``orbital_tpu.engine.state.NBodyState``) and steps it with jitted XLA /
 Pallas kernels — no per-object Python physics runs inside the hot loop.

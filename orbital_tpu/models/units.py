@@ -6,7 +6,7 @@ subclasses carrying a float value and a unit tag, pairwise converters
 (``Meters.to_au`` etc.), angle normalization at construction, and
 addition/subtraction that refuses mixed units.
 
-Design differences from the reference (TPU-first build):
+Design differences from the reference:
   * values may be numpy arrays as well as scalars, so whole element tables
     can be converted vectorized before being compiled into device state;
   * a generic :func:`convert` registry drives ``System.standardize_units``

@@ -4,7 +4,7 @@ The reference resolves collisions with a sequential O(N^2) Python sweep per
 step (reference: core/physics.py:510-535): for each overlapping pair either
 an impulse bounce with restitution + positional de-overlap
 (core/physics.py:391-422) or a momentum-conserving merge
-(core/physics.py:519-531). On TPU both become dense masked pair matrices:
+(core/physics.py:519-531). Here both become masked pair matrices:
 
   * bounce: all pair impulses are computed simultaneously from the
     *pre-collision* velocities and accumulated per body. For isolated
@@ -16,8 +16,10 @@ an impulse bounce with restitution + positional de-overlap
     radius is volume-additive. Merged-away bodies become mass-0 "dead"
     bodies (alive=False) instead of being removed, keeping shapes static.
 
-Both run in O(N^2) memory over per-coordinate [N, N] buffers; for large N
-the bounce detection can instead be fused into the Pallas force kernel.
+The dense forms run in O(N^2) memory over per-coordinate [N, N] buffers;
+above 4096 bodies the row-chunked forms take over (``bounce_deltas_
+chunked``, ``count_contacts_chunked``), and on the GPU contact detection
+rides the force kernel's own sweep (``ops.pallas_forces``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["bounce_deltas", "merge_groups", "resolve_outcomes",
+__all__ = ["bounce_deltas", "bounce_deltas_chunked", "merge_groups",
+           "resolve_outcomes",
            "resolve_outcomes_subset", "collision_roots",
            "collision_roots_chunked", "count_contacts_dense",
            "count_contacts_chunked"]
@@ -47,6 +50,56 @@ def _pair_geometry(pos, radius, alive):
     return (dx * inv_d, dy * inv_d, dz * inv_d), dist, touching
 
 
+def _bounce_block(pos_i, vel_i, mass_i, radius_i, alive_i, ids_i,
+                  pos, vel, mass, radius, alive, ids, *, restitution: float):
+    """Restitution corrections on a row block from all columns; the pair
+    math of :func:`bounce_deltas`. Returns (dpos [I,3], dvel [I,3])."""
+    dx = pos_i[:, None, 0] - pos[None, :, 0]  # r_i - r_j (normal points at i)
+    dy = pos_i[:, None, 1] - pos[None, :, 1]
+    dz = pos_i[:, None, 2] - pos[None, :, 2]
+    dist = jnp.sqrt(dx * dx + dy * dy + dz * dz)
+    valid = ((ids_i[:, None] != ids[None, :])
+             & alive_i[:, None] & alive[None, :])
+    touching = (valid & (dist <= radius_i[:, None] + radius[None, :])
+                & (dist > 0.0))
+    inv_d = jnp.where(dist > 0.0, 1.0 / jnp.where(dist > 0.0, dist, 1.0), 0.0)
+    nx, ny, nz = dx * inv_d, dy * inv_d, dz * inv_d
+
+    v_rel_n = ((vel_i[:, None, 0] - vel[None, :, 0]) * nx
+               + (vel_i[:, None, 1] - vel[None, :, 1]) * ny
+               + (vel_i[:, None, 2] - vel[None, :, 2]) * nz)  # [I, N]
+    active = touching & (v_rel_n < 0.0)
+
+    def inv(m):
+        return jnp.where(m > 0.0, 1.0 / jnp.where(m > 0.0, m, 1.0), 0.0)
+
+    inv_mi = inv(mass_i)
+    inv_m_sum = inv_mi[:, None] + inv(mass)[None, :]
+    e = min(max(float(restitution), 0.0), 1.0)
+    j_mag = jnp.where(active, -(1.0 + e) * v_rel_n / inv_m_sum, 0.0)
+
+    # dv_i = sum_j (j_ij / m_i) n_ij; the (j, i) entry carries the equal and
+    # opposite impulse automatically since n and v_rel both flip sign.
+    scale_v = j_mag * inv_mi[:, None]
+    dvel = jnp.stack(
+        [jnp.sum(scale_v * nx, axis=1),
+         jnp.sum(scale_v * ny, axis=1),
+         jnp.sum(scale_v * nz, axis=1)],
+        axis=-1,
+    )
+
+    overlap = radius_i[:, None] + radius[None, :] - dist
+    corr = jnp.where(active & (overlap > 0.0), overlap / inv_m_sum, 0.0)
+    scale_r = corr * inv_mi[:, None]
+    dpos = jnp.stack(
+        [jnp.sum(scale_r * nx, axis=1),
+         jnp.sum(scale_r * ny, axis=1),
+         jnp.sum(scale_r * nz, axis=1)],
+        axis=-1,
+    )
+    return dpos, dvel
+
+
 @partial(jax.jit, static_argnames=("restitution",))
 def bounce_deltas(pos, vel, mass, radius, alive, *, restitution: float = 1.0):
     """Velocity and position corrections from restitution impulses.
@@ -58,40 +111,32 @@ def bounce_deltas(pos, vel, mass, radius, alive, *, restitution: float = 1.0):
 
     Returns (dpos [N,3], dvel [N,3]) to be *added* to the state.
     """
-    (nx, ny, nz), dist, touching = _pair_geometry(pos, radius, alive)
+    ids = jnp.arange(pos.shape[0])
+    return _bounce_block(pos, vel, mass, radius, alive, ids,
+                         pos, vel, mass, radius, alive, ids,
+                         restitution=restitution)
 
-    dvx = vel[:, None, 0] - vel[None, :, 0]
-    dvy = vel[:, None, 1] - vel[None, :, 1]
-    dvz = vel[:, None, 2] - vel[None, :, 2]
-    v_rel_n = dvx * nx + dvy * ny + dvz * nz  # [N, N]
 
-    active = touching & (v_rel_n < 0.0)
+@partial(jax.jit, static_argnames=("restitution", "chunk"))
+def bounce_deltas_chunked(pos, vel, mass, radius, alive, *,
+                          restitution: float = 1.0, chunk: int = 1024):
+    """Row-blocked :func:`bounce_deltas` (O(chunk*N) memory): the bounce
+    sweep above the dense [N, N] ceiling. N must divide by ``chunk``."""
+    n = pos.shape[0]
+    if n % chunk != 0:
+        raise ValueError(f"N={n} must be a multiple of chunk={chunk}")
+    ids = jnp.arange(n)
 
-    inv_m = jnp.where(mass > 0.0, 1.0 / jnp.where(mass > 0.0, mass, 1.0), 0.0)
-    inv_m_sum = inv_m[:, None] + inv_m[None, :]
-    e = min(max(float(restitution), 0.0), 1.0)
-    j_mag = jnp.where(active, -(1.0 + e) * v_rel_n / inv_m_sum, 0.0)
+    def row_block(start):
+        def sl(a):
+            return lax.dynamic_slice_in_dim(a, start, chunk, axis=0)
 
-    # dv_i = sum_j (j_ij / m_i) n_ij; the (j, i) entry carries the equal and
-    # opposite impulse automatically since n and v_rel both flip sign.
-    scale_v = j_mag * inv_m[:, None]
-    dvel = jnp.stack(
-        [jnp.sum(scale_v * nx, axis=1),
-         jnp.sum(scale_v * ny, axis=1),
-         jnp.sum(scale_v * nz, axis=1)],
-        axis=-1,
-    )
+        return _bounce_block(sl(pos), sl(vel), sl(mass), sl(radius),
+                             sl(alive), sl(ids), pos, vel, mass, radius,
+                             alive, ids, restitution=restitution)
 
-    overlap = radius[:, None] + radius[None, :] - dist
-    corr = jnp.where(active & (overlap > 0.0), overlap / inv_m_sum, 0.0)
-    scale_r = corr * inv_m[:, None]
-    dpos = jnp.stack(
-        [jnp.sum(scale_r * nx, axis=1),
-         jnp.sum(scale_r * ny, axis=1),
-         jnp.sum(scale_r * nz, axis=1)],
-        axis=-1,
-    )
-    return dpos, dvel
+    dpos, dvel = lax.map(row_block, jnp.arange(0, n, chunk))
+    return dpos.reshape(n, 3), dvel.reshape(n, 3)
 
 
 def _contacts_block(pos_i, radius_i, alive_i, ids_i, pos, radius, alive, ids):

@@ -13,11 +13,11 @@ alive mask. Everything here is jit/vmap/grad-safe with static shapes.
 
 Three flavors:
   * :func:`pairwise_acc_dense`   — materializes [N, N] per-coordinate
-    difference matrices; the fastest XLA-only path up to N ~ 8k.
+    difference matrices; the path up to N = 4096 (``ops.backend``).
   * :func:`pairwise_acc_chunked` — `lax.map` over row-blocks; O(C*N)
-    memory, arbitrary N without Pallas.
-  * ``orbital_tpu.ops.pallas_forces`` — the tiled Pallas TPU kernel for
-    large N (same contract, same math).
+    memory, any N that divides by the chunk; the CPU's large-N path.
+  * ``orbital_tpu.ops.pallas_forces`` — the GPU kernel for large N (same
+    contract, same math).
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked", "soften_potential_pairs"]
+__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked",
+           "block_acc_dense", "block_acc_chunked", "soften_potential_pairs"]
 
 
 def _masked_inverse_r(r2, mask, eps2):
@@ -47,8 +48,8 @@ def _block_acc_potential(pos_i, pos_j, mass_j, mask, eps2, G):
     Returns (acc [I, 3], pe_row [I]) where pe_row_i = sum_j m_j * inv_r_ij
     (caller multiplies by -G m_i and halves for double counting).
     """
-    # Per-coordinate difference matrices keep peak memory at 3 [I, J] buffers
-    # (not one [I, J, 3]) and map directly onto 8x128 VPU tiles.
+    # Per-coordinate difference matrices keep peak memory at 3 [I, J]
+    # buffers (not one [I, J, 3]).
     dx = pos_j[None, :, 0] - pos_i[:, None, 0]
     dy = pos_j[None, :, 1] - pos_i[:, None, 1]
     dz = pos_j[None, :, 2] - pos_i[:, None, 2]
@@ -131,6 +132,48 @@ def pairwise_acc_chunked(
     return acc, U
 
 
+def block_acc_dense(pos_i, pos_j, mass_j, *, G: float, eps2: float):
+    """Mask-free partial forces of body block j on body block i (the
+    ring's per-round block; self-pairs cancel through dx == 0 and, at
+    eps2 == 0, through the r2 > 0 select). Returns (acc [I, 3], pe_row
+    [I]) with pe_row_i = sum_j m_j / sqrt(r^2 + eps^2), including the
+    i == j term when the blocks coincide."""
+    dx = pos_j[None, :, 0] - pos_i[:, None, 0]
+    dy = pos_j[None, :, 1] - pos_i[:, None, 1]
+    dz = pos_j[None, :, 2] - pos_i[:, None, 2]
+    r2 = dx * dx + dy * dy + dz * dz
+    if eps2 > 0.0:
+        inv_r = lax.rsqrt(r2 + eps2)
+    else:
+        safe = r2 > 0.0
+        inv_r = jnp.where(safe, lax.rsqrt(jnp.where(safe, r2, 1.0)), 0.0)
+    inv_r3 = inv_r * inv_r * inv_r
+    w = mass_j[None, :] * inv_r3
+    acc = G * jnp.stack(
+        [jnp.sum(w * dx, axis=1), jnp.sum(w * dy, axis=1),
+         jnp.sum(w * dz, axis=1)], axis=-1)
+    pe_row = jnp.sum(mass_j[None, :] * inv_r, axis=1)
+    return acc, pe_row
+
+
+def block_acc_chunked(pos_i, pos_j, mass_j, *, G: float, eps2: float,
+                      chunk: int = 1024):
+    """:func:`block_acc_dense` over row-blocks of ``pos_i``: O(chunk * J)
+    live memory instead of the dense [I, J] temporaries. The row count
+    must divide by ``chunk``."""
+    n_i = pos_i.shape[0]
+    if n_i % chunk != 0:
+        raise ValueError(f"block of {n_i} rows must be a multiple of "
+                         f"chunk={chunk}")
+
+    def row_block(start):
+        p = lax.dynamic_slice_in_dim(pos_i, start, chunk, axis=0)
+        return block_acc_dense(p, pos_j, mass_j, G=G, eps2=eps2)
+
+    acc, pe = lax.map(row_block, jnp.arange(0, n_i, chunk))
+    return acc.reshape(n_i, 3), pe.reshape(n_i)
+
+
 def soften_potential_pairs(pos, mass, *, G, eps2):
     """Total softened potential only (diagnostics helper)."""
     _, U = pairwise_acc_dense(pos, mass, G=G, eps2=eps2)
@@ -206,8 +249,7 @@ def accel_jerk_chunked(
     chunk: int = 1024,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Row-blocked acc + jerk: O(chunk * N) live memory, lifting the dense
-    path's N ~ 8k ceiling so Hermite runs at the flagship N (VERDICT round-1
-    missing #3). N must divide by ``chunk``."""
+    path's N ~ 8k ceiling so Hermite runs at the flagship N. N must divide by ``chunk``."""
     n = pos.shape[0]
     if n % chunk != 0:
         raise ValueError(f"N={n} must be a multiple of chunk={chunk}")

@@ -1,31 +1,26 @@
-"""MXU-formulated pairwise gravity: the Gram-matrix experiment.
+"""Matrix-unit formulation of pairwise gravity: the Gram-matrix variant.
 
-VERDICT r1 #1 asked for the systolic-array formulation of the O(N^2)
-force sweep (reference hot loop: /root/reference/core/physics.py:125-159):
+The O(N^2) force sweep (reference hot loop: core/physics.py:125-159)
+written as matrix contractions:
 
-    r2_ij = |r_i|^2 + |r_j|^2 - 2 (pos @ pos^T)_ij        [Gram, MXU]
-    W_ij  = m_j (r2_ij + eps^2)^(-3/2)                     [VPU rsqrt]
-    acc   = G (W @ [pos, 1] -> (S, row))                   [MXU]
+    r2_ij = |r_i|^2 + |r_j|^2 - 2 (pos @ pos^T)_ij        [Gram matmul]
+    W_ij  = m_j (r2_ij + eps^2)^(-3/2)                     [elementwise]
+    acc   = G (W @ [pos, 1] -> (S, row))                   [matmul]
           = G (S - pos * row)
 
-i.e. both the pair-distance matrix and the force accumulation become
-matrix contractions, leaving only the reciprocal-sqrt chain on the VPU.
-Implemented row-blocked (lax.map over [C, N] panels) so it runs at any N.
-
-**Measured negative result** (see DESIGN.md "MXU study"): on TPU the
-useful contraction depths are 3 (Gram) and 4 (accumulation), so the MXU
-runs at 3/128 and 4/128 of its systolic depth; worse, every [N, N]
-operand/result is bounded by the array's 128-elements/cycle ingest/emit
-rate, while the VPU streams 8x128 lanes x ~4 ops per cycle over the same
-[N, N] tiles. This path is kept (a) as the measured evidence for that
-conclusion, and (b) as a correctness-checked alternative formulation.
+leaving only the reciprocal-sqrt chain elementwise. Implemented
+row-blocked (lax.map over [C, N] panels) so it runs at any N. The
+contraction depths are 3 (Gram) and 4 (accumulation), far below what a
+matrix unit needs to run near its rate; on the GPU the contractions must
+also stay out of TF32 (see below), so this path is a correctness-checked
+alternative formulation, not the fast one (ROADMAP C2 decides its fate).
 
 Numerics: the Gram identity cancels catastrophically for close pairs
 (|r_i|^2 + |r_j|^2 - 2 r_i.r_j loses ~log2(|r|^2/r2) bits), so r2 is
 clamped at >= 0 before softening; with natural-unit scenes (positions
 O(1)) and typical eps2 >= 1e-6 the acc error stays ~1e-4 relative —
-fine for the measurement, NOT production-grade. Self-pairs are removed
-exactly by a diagonal mask on W.
+NOT production-grade. Self-pairs are removed exactly by a diagonal mask
+on W.
 """
 from __future__ import annotations
 
@@ -73,8 +68,8 @@ def pairwise_acc_mxu(
         pos_i = lax.dynamic_slice_in_dim(pos32, start, chunk, axis=0)
         sq_i = lax.dynamic_slice_in_dim(sq, start, chunk, axis=0)
         row_ids = start + jnp.arange(chunk)
-        # HIGHEST is load-bearing: TPU matmuls default to bf16 inputs,
-        # which destroys the Gram cancellation (measured 60x force errors)
+        # HIGHEST is load-bearing: a default float32 matmul may run in
+        # TF32 or bf16 inputs, which destroys the Gram cancellation
         gram = jnp.dot(pos_i, posT, preferred_element_type=jnp.float32,
                        precision=lax.Precision.HIGHEST)
         r2 = jnp.maximum(sq_i[:, None] + sq[None, :] - 2.0 * gram, 0.0)

@@ -24,9 +24,9 @@ grid, built with static shapes:
 
 When to use: large-N systems with bounded density contrast (uniform /
 cosmological-style media) that need better-than-mesh force accuracy —
-measured 2.9e-3 RMS force error vs the exact kernel (grid 64, defaults)
-at softenings far below the mesh scale, and 714 ms/eval at N=1M on v5e
-(grid 224, capacity 64, zero overflow; exact kernel: ~5.3 s, PM: 115 ms).
+measured 2.9e-3 RMS force error vs the exact sweep (grid 64, defaults)
+at softenings far below the mesh scale (time per eval on the GPU: not
+measured yet).
 Strongly concentrated clusters overflow any fixed per-cell capacity
 (centrally ~1000s of bodies per r_cut cell); use the exact kernels or PM
 there. The reference has no analog (exact O(N^2) only); this extends the
@@ -154,8 +154,8 @@ def p3m_acc_potential(
 
     order = jnp.argsort(cell_id)
     sc = cell_id[order]
-    # scan-based segment bounds: searchsorted costs ~96 ns/query on v5e
-    # (~95 ms at N=1M); the associative scan is ~1 ms (ops/tree.py)
+    # scan-based segment bounds instead of 2n binary searches
+    # (ops/tree.py)
     first, _ = _segment_bounds(sc)
     rank = jnp.arange(n, dtype=jnp.int32) - first
     keep = (rank < capacity) & (sc < gc3)
@@ -170,7 +170,7 @@ def p3m_acc_potential(
     # per-cell body data built by SCATTERING the cell-id-sorted bodies
     # (5n elements) instead of gathering gc3 x M table elements — every
     # table row is a prefix of the sorted body array, the same inversion
-    # that cut the tree's pack from 108 to 2.3 ms (ops/tree.py). Unfilled
+    # the tree's pack uses (ops/tree.py). Unfilled
     # slots keep the sentinel (far away, massless), matching the old
     # pos_pad[table] semantics.
     cell_pos = jnp.broadcast_to(

@@ -1,9 +1,9 @@
 """Particle-mesh (PM) gravity: FFT Poisson solve for N >> 10^5.
 
-The exact O(N^2) kernels top out around N ~ 1.3e5 per chip (DESIGN.md);
-this solver trades small-scale accuracy for O(N + G^3 log G) cost, the
+The exact O(N^2) sweep grows quadratically past N ~ 1e5 per device; this
+solver trades small-scale accuracy for O(N + G^3 log G) cost, the
 standard Hockney–Eastwood open-boundary scheme recast in XLA primitives
-(FFTs run on the TPU tensor cores; deposits/gathers are segment-sums):
+(FFTs through XLA's FFT library; deposits/gathers are segment-sums):
 
   1. cloud-in-cell (CIC) deposit of particle masses onto a G^3 grid over
      the live bodies' bounding cube;
@@ -65,8 +65,8 @@ def _bounding_cube(pos32, alive_f, g, axis_name):
 
 def _cic_corners(pos32, origin, h, g):
     """Flattened cell indices and weights of the 8 CIC corners, as [8, N]
-    stacks (a [N, 2, 2, 2] layout gets 64x-padded by TPU (8, 128) tiling
-    and OOMs at multi-million N)."""
+    stacks (contiguous per corner, rather than a [N, 2, 2, 2] layout with
+    tiny minor dimensions)."""
     uc = (pos32 - origin) / h - 0.5
     uc = jnp.clip(uc, 0.0, g - 1.001)        # also tames far-parked dead
     i0, fr = _cic_weights(uc)
@@ -150,8 +150,8 @@ def _pm_core(pos32, m_eff, alive_f, *, g: int, G_grav: float, kern_builder,
     fields = [grad_axis(0), grad_axis(1), grad_axis(2)]
     if with_potential:
         fields.append(phi[:g, :g, :g])
-    # one channel-stacked gather instead of one per field: the random HBM
-    # access dominates PM cost (the FFT is ~2% at 1M bodies), and fetching
+    # one channel-stacked gather instead of one per field: the random
+    # device-memory access dominates PM cost, and fetching
     # all channels per cell index amortizes it. Layout [C, 8, N] keeps the
     # long axis last.
     F = jnp.stack([f.reshape(-1) for f in fields], axis=0)   # [C, g^3]
@@ -192,7 +192,7 @@ def pm_acc_potential(
     Multi-chip: with ``axis_name`` set (inside shard_map over body-sharded
     particles), the bounding box is agreed via pmin/pmax, each shard
     deposits its particles locally and ONE psum of the G^3 mass grid (a
-    few MB over ICI) makes the density global; the FFT solve is replicated
+    few MB) makes the density global; the FFT solve is replicated
     per device (cheap — the grid is tiny next to the particles) and the
     gather stays local. N then scales with the mesh.
     """

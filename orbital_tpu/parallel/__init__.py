@@ -1,2 +1,2 @@
-"""Multi-chip and ensemble parallelism: device meshes, shard_map ring
-forces over ICI, and vmapped Monte-Carlo ensembles."""
+"""Multi-device and ensemble parallelism: device meshes, shard_map ring
+forces, and vmapped Monte-Carlo ensembles."""

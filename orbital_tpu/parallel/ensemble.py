@@ -62,9 +62,7 @@ def ensemble_rollout(
     def one(s: NBodyState):
         acc, U = force(s.pos, s.mass, s.alive)
         s = s.replace(acc=acc, potential=U)
-        # fused="never": the whole-rollout Pallas kernel is not vmapped
-        return rollout(s, cfg, steps, record_every, force_fn=force,
-                       fused="never")
+        return rollout(s, cfg, steps, record_every, force_fn=force)
 
     return jax.vmap(one)(states)
 

@@ -1,11 +1,13 @@
 """Device mesh helpers.
 
 Single entry point for building 1D/2D meshes over whatever devices exist
-(real TPU slices or `--xla_force_host_platform_device_count` virtual CPU
-devices in tests). Axis conventions for this framework:
+(the GPUs of a host, or `--xla_force_host_platform_device_count` virtual
+CPU devices in tests). The mesh follows the algorithm alone: every GPU of
+a host reaches every other over NVLink at the same rate, so no topology
+enters. Axis conventions for this framework:
 
-  * ``body``     — bodies sharded across chips; forces run as a ppermute
-                   ring over ICI (the ring-attention analog for O(N^2)
+  * ``body``     — bodies sharded across devices; forces run as a
+                   ppermute ring (the ring-attention analog for O(N^2)
                    interactions; see SURVEY §5).
   * ``ensemble`` — independent perturbed systems (Monte-Carlo); pure data
                    parallelism, no collectives inside the step.

@@ -1,4 +1,4 @@
-"""Body-sharded O(N^2) forces: a shard_map ppermute ring over ICI.
+"""Body-sharded O(N^2) forces: a shard_map ppermute ring between devices.
 
 The O(N^2) interaction sweep is structurally identical to unnormalized
 attention scores, so the multi-chip strategy is ring attention's (see
@@ -9,10 +9,11 @@ accelerations and potential. After D rounds every shard has seen every
 body. XLA overlaps the ppermute with the force block of the previous round.
 
 No NCCL/MPI equivalent is hand-built: the collectives are XLA's, laid out
-by ``shard_map`` over a ``Mesh`` so the permute rides ICI.
+by ``shard_map`` over a ``Mesh`` (NCCL between GPUs).
 
-Softening must be > 0 in sharded mode (the mask-free self-pair
-cancellation; see ``ops.pallas_forces``). Cross-shard bounce collisions
+Each round's block force is the exact-sweep choice of ``ops.backend``
+(the GPU kernel or a row-chunked XLA block), never a dense [B, B] block
+past 4096 bodies per shard. Cross-shard bounce collisions
 ride the same ring (``ring_bounce_fn``); cross-shard merge gates an
 all_gather + exact global merge on a ring contact count
 (``ring_contacts_fn``), so contact-free steps never gather.
@@ -30,6 +31,8 @@ from jax.sharding import PartitionSpec as P
 
 from ..engine.integrators import ForceFn, make_step_fn
 from ..engine.state import NBodyState
+from ..ops import backend
+from ..ops.forces import block_acc_chunked, block_acc_dense
 from ..utils.config import SimConfig
 
 __all__ = ["ring_force_fn", "ring_bounce_fn", "make_sharded_step",
@@ -37,36 +40,21 @@ __all__ = ["ring_force_fn", "ring_bounce_fn", "make_sharded_step",
            "make_sharded_ensemble_step", "state_sharding", "shard_state"]
 
 
-def _check_vma(cfg: SimConfig) -> bool:
-    """shard_map's varying-manual-axes checker currently mis-propagates
-    through pallas_call (jax-ml/jax: 'pass check_vma=False as a temporary
-    workaround'), so disable it exactly when the ring will run Pallas
-    block kernels and keep it on for the dense-block path."""
-    return not (cfg.ring_block_impl == "pallas"
-                or (cfg.ring_block_impl == "auto"
-                    and jax.default_backend() == "tpu"))
+def _ring_block_impl(cfg: SimConfig, block: int) -> str:
+    """The ring's per-round block force for ``block`` bodies per shard:
+    ``cfg.ring_block_impl``, with "auto" resolved like the single-device
+    exact sweep (``ops.backend.exact_sweep_impl``)."""
+    if cfg.ring_block_impl == "auto":
+        return backend.exact_sweep_impl(block)
+    return cfg.ring_block_impl
 
 
-def _block_force(pos_i, pos_j, mass_j, *, G: float, eps2: float):
-    """Mask-free partial forces of shard j on shard i (requires eps2 > 0 or
-    fully distinct positions; self-pairs cancel through dx == 0)."""
-    dx = pos_j[None, :, 0] - pos_i[:, None, 0]
-    dy = pos_j[None, :, 1] - pos_i[:, None, 1]
-    dz = pos_j[None, :, 2] - pos_i[:, None, 2]
-    r2 = dx * dx + dy * dy + dz * dz
-    if eps2 > 0.0:
-        inv_r = lax.rsqrt(r2 + eps2)
-    else:
-        safe = r2 > 0.0
-        inv_r = jnp.where(safe, lax.rsqrt(jnp.where(safe, r2, 1.0)), 0.0)
-    inv_r3 = inv_r * inv_r * inv_r
-    w = mass_j[None, :] * inv_r3
-    acc = G * jnp.stack(
-        [jnp.sum(w * dx, axis=1), jnp.sum(w * dy, axis=1), jnp.sum(w * dz, axis=1)],
-        axis=-1,
-    )
-    pe_row = jnp.sum(mass_j[None, :] * inv_r, axis=1)
-    return acc, pe_row
+def _check_vma(cfg: SimConfig, n: int, n_shards: int) -> bool:
+    """shard_map's varying-manual-axes checker does not see through
+    pallas_call, so disable it exactly when the ring's exact force runs
+    the Pallas block kernel and keep it on otherwise."""
+    return not (cfg.force_impl in ("auto", "pallas", "ring")
+                and _ring_block_impl(cfg, n // n_shards) == "pallas")
 
 
 def _block_bounce(pos_i, vel_i, mass_i, radius_i,
@@ -169,7 +157,6 @@ def _mesh_force_fn(cfg: SimConfig, axis: str, n_shards: int):
                 max_frontier=cfg.tree_max_frontier,
                 max_chunks=cfg.tree_max_chunks, chunk=cfg.tree_chunk,
                 pair_entries=tuple(cfg.tree_pair_entries),
-                wl_entries=cfg.tree_wl_entries, wl_rj=cfg.tree_wl_rj,
                 with_potential=cfg.track_potential, box=pm_box)
         return force
 
@@ -235,13 +222,10 @@ def ring_force_fn(cfg: SimConfig, n_shards: int) -> ForceFn:
     """ForceFn for use *inside* shard_map: per-device shards in, per-device
     acc shard + replicated total potential out.
 
-    Each round's [local x visiting] block force runs through the tiled
-    Pallas kernel (``ops.pallas_forces.block_acc_pallas``) when the local
-    block is tile-aligned — so on a real mesh every shard computes at the
-    tuned single-chip kernel rate, not the dense-XLA rate (VERDICT r1
-    missing #4) — with dense jnp as the off-TPU/odd-shape fallback
-    (``cfg.ring_block_impl`` selects explicitly; tests force "pallas" in
-    interpret mode on the CPU mesh)."""
+    Each round's [local x visiting] block force runs through
+    :func:`_ring_block_impl`: the GPU kernel
+    (``ops.pallas_forces.block_acc_pallas``) on the GPU, a row-chunked
+    XLA block on the CPU, dense only for small shards."""
     axis = cfg.shard_axis
     if axis is None:
         raise ValueError("ring force requires cfg.shard_axis")
@@ -250,26 +234,20 @@ def ring_force_fn(cfg: SimConfig, n_shards: int) -> ForceFn:
     def fn(pos, mass, alive):
         mass_eff = mass * alive.astype(mass.dtype)
         block = pos.shape[0]
-        tileable = block % 128 == 0 and cfg.eps2 > 0.0
-        impl = cfg.ring_block_impl
-        if impl == "auto":
-            impl = ("pallas" if tileable and jax.default_backend() == "tpu"
-                    else "dense")
-        if impl == "pallas" and not tileable:
-            raise ValueError(
-                f"ring_block_impl='pallas' needs eps2 > 0 and a local block "
-                f"divisible by 128, got block={block}, eps2={cfg.eps2}")
+        impl = _ring_block_impl(cfg, block)
+        kw = dict(G=cfg.G, eps2=cfg.eps2)
 
         def block_force(pos_i, pos_j, mass_j):
             if impl == "pallas":
                 from ..ops.pallas_forces import block_acc_pallas
 
-                return block_acc_pallas(pos_i, pos_j, mass_j,
-                                        G=cfg.G, eps2=cfg.eps2,
-                                        tile_i=min(512, block),
-                                        tile_j=min(2048, block),
-                                        vma=(axis,))
-            return _block_force(pos_i, pos_j, mass_j, G=cfg.G, eps2=cfg.eps2)
+                return block_acc_pallas(
+                    pos_i, pos_j, mass_j, vma=(axis,),
+                    interpret=backend.INTERPRET, **kw)
+            if impl == "chunked":
+                return block_acc_chunked(pos_i, pos_j, mass_j,
+                                         chunk=min(cfg.chunk, block), **kw)
+            return block_acc_dense(pos_i, pos_j, mass_j, **kw)
 
         def round_k(k, carry):
             acc, pe, pos_j, mass_j = carry
@@ -420,7 +398,7 @@ def _build_local_step(cfg: SimConfig, n_shards: int, n_bodies: int,
     elif cfg.collisions == "merge":
         # cross-shard merge: contact chains are global, so when (and only
         # when) the ring contact count is nonzero, all_gather the body
-        # arrays over ICI (a few MB at 65k), run the exact global merge,
+        # arrays (a few MB at 65k), run the exact global merge,
         # and slice the local shard back out. Contact-free steps pay one
         # cheap detection ring and no gather.
         from ..ops import collisions as _coll
@@ -500,7 +478,8 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
 
     spec = _state_specs(state_example, axis)
     sharded = jax.shard_map(local_step, mesh=mesh, in_specs=(spec,),
-                            out_specs=spec, check_vma=_check_vma(cfg))
+                            out_specs=spec,
+                            check_vma=_check_vma(cfg, n_bodies, n_shards))
     return jax.jit(sharded)
 
 
@@ -569,7 +548,7 @@ def make_sharded_rollout(cfg: SimConfig, mesh: Mesh,
         traj_spec = None
     sharded = jax.shard_map(local_roll, mesh=mesh, in_specs=(spec,),
                             out_specs=(spec, traj_spec),
-                            check_vma=_check_vma(cfg))
+                            check_vma=_check_vma(cfg, n_bodies, n_shards))
     return jax.jit(sharded)
 
 
@@ -609,17 +588,16 @@ def make_sharded_respa_rollout(cfg: SimConfig, mesh: Mesh,
     """Compiled multi-chip multirate (RESPA) rollout: scan of the sharded
     macro window inside ``shard_map``.
 
-    What shards (the two phases that carry essentially all the FLOPs —
-    DESIGN "multirate phase anatomy"):
+    What shards (the two phases that carry essentially all the FLOPs):
 
     * the CLOSING exact O(N^2) evaluation, one per macro window — the
       ppermute ring (:func:`ring_force_fn`), each device sweeping its
-      body shard at the tuned block-kernel rate (1/D of the pair work);
+      body shard through the exact-sweep block (1/D of the pair work);
     * the per-substep switched NEAR sweep — each device sweeps its
       ``1/D`` slice of the frozen i-chunk table against the global j side
       (``near_acc_slots*(..., i0=...)``) and one all_gather of the
-      slot-ordered acc rows reassembles the table (~K_ch*C*16 bytes over
-      ICI per substep).
+      slot-ordered acc rows reassembles the table (~K_ch*C*16 bytes per
+      substep).
 
     What replicates: the neighbor-geometry build (once per
     ``respa_refresh`` windows), pack/unpack, and the elementwise
@@ -691,7 +669,7 @@ def make_sharded_respa_rollout(cfg: SimConfig, mesh: Mesh,
         s = _gather_state_full(s_local, axis)
         zero = jnp.zeros((), jnp.int32)
         diag0 = dict(overflow=zero, cap_overflow=zero, w_overflow=zero,
-                     q_overflow=zero, skin_violation=zero)
+                     skin_violation=zero)
         geom0 = macro.build_geom(s)
         if record_every <= 0:
             (final, _, diag), _ = lax.scan(
@@ -723,9 +701,9 @@ def make_sharded_respa_rollout(cfg: SimConfig, mesh: Mesh,
     else:
         traj_spec = None
     diag_spec = dict(overflow=P(), cap_overflow=P(), w_overflow=P(),
-                     q_overflow=P(), skin_violation=P())
+                     skin_violation=P())
     # check_vma=False: the replicated-inner-state pattern (axis_index
-    # slices re-gathered every sweep) plus the optional Pallas kernels
+    # slices re-gathered every sweep) plus the Pallas block kernel
     # (see _check_vma) both sit outside what the varying-manual-axes
     # checker can currently express
     sharded = jax.shard_map(local_roll, mesh=mesh, in_specs=(spec,),
@@ -825,7 +803,9 @@ def make_sharded_ensemble_step(cfg: SimConfig, mesh: Mesh,
         jerk=mat if state_example.jerk is not None else None,
     )
     step = jax.jit(jax.shard_map(jax.vmap(one), mesh=mesh, in_specs=(spec,),
-                                 out_specs=spec, check_vma=_check_vma(cfg)))
+                                 out_specs=spec,
+                                 check_vma=_check_vma(cfg, n_bodies,
+                                                      n_body_shards)))
     shardings = jax.tree_util.tree_map(
         lambda s: NamedSharding(mesh, s), spec,
         is_leaf=lambda x: isinstance(x, P),

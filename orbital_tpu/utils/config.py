@@ -38,11 +38,11 @@ class SimConfig:
             "yoshida4" (4th-order symplectic; 3 weighted KDK sub-steps,
             3 force evals/step — KDK's long-horizon stability at two
             orders higher per-step accuracy).
-        force_impl: "auto" | "dense" | "chunked" | "pallas" |
-            "pallas_sym" (half-pair symmetric kernel, no PE) |
-            "mxu" (XLA Gram-matmul study) | "pallas_mxu" (MXU-tiled
-            Pallas kernel: matmul distances + matmul accumulation;
-            fastest at large N, Gram-identity accuracy caveats) |
+        force_impl: "auto" (``ops.backend``: dense up to 4096 bodies, then
+            the GPU kernel on the GPU or the chunked sweep on the CPU) |
+            "dense" | "chunked" | "pallas" (the exact-sweep kernel on the
+            Triton route, ``ops.pallas_forces``; GPU only) |
+            "mxu" (XLA Gram-matmul formulation) |
             "pm" (particle-mesh FFT Poisson solver, O(N + G^3 log G) for
             N >> 1e5; collisionless accuracy contract, see ops/pm.py) |
             "p3m" (PM far field + exact short-range cell-list correction,
@@ -53,19 +53,20 @@ class SimConfig:
             systems where P3M's per-cell capacity overflows; ~1e-2 RMS
             forces at tree_ws=1, ~3e-3 at tree_ws=2; see ops/tree.py) |
             "ring".
-        chunk: row-block size for the chunked/pallas force paths.
+        chunk: row-block size for the chunked force paths.
         shard_axis: mesh axis name for the ring force path (None = unsharded).
         track_potential: compute the softened potential every force eval
             (reference parity, core/physics.py:158). False skips the PE sum
-            in the Pallas stepper path (~13% faster); energy diagnostics
-            then need an explicit potential evaluation.
+            in the GPU kernel; energy diagnostics then need an explicit
+            potential evaluation.
         adaptive_eta: hermite only — enables adaptive time steps
             dt = clip(eta * min_i sqrt(|a_i| / |jerk_i|), dt_min, dt)
             (the Aarseth criterion); ``dt`` becomes the ceiling.
         dt_min: floor for the adaptive step.
         ring_block_impl: per-round block-force implementation inside the
-            shard_map ppermute ring — "auto" (Pallas on TPU when the local
-            block tiles, dense jnp otherwise), "pallas", or "dense".
+            shard_map ppermute ring — "auto" (dense up to 4096 bodies per
+            shard, then the exact-sweep choice of ``ops.backend``),
+            "pallas", "chunked", or "dense".
         pm_grid: mesh resolution per axis for force_impl="pm"/"p3m".
         p3m_capacity: max bodies per short-range cell (force_impl="p3m");
             overflowing bodies silently lose short-range pairs — size it
@@ -127,12 +128,6 @@ class SimConfig:
             budgets; size with ops.tree.tree_pairs_probe
             (simulate(force_impl="tree", tree_near="pairs") probes
             automatically).
-        tree_wl_entries: tree_near="kernel" static worklist budget
-            (total RJ-row j-blocks); size with
-            ops.tree_near_wl.tree_wl_budgets (simulate() probes
-            automatically).
-        tree_wl_rj: tree_near="kernel" j-block height in chunk rows
-            (tree_wl_rj * tree_chunk must be a multiple of 128).
         hermite_rungs: block-timestep Hermite substep LEVELS. 1 (the
             default) substeps every fast body at the single rate the
             fastest needs. R > 1 grants power-of-two rungs by
@@ -193,16 +188,7 @@ class SimConfig:
         respa_w_blk: static per-chunk j-block budget (probe-sized).
         respa_chunk / respa_rj: chunk rows and j-block height
             (rj * chunk must be a multiple of 128).
-        respa_impl: near-sweep backend — "auto" (Pallas on TPU, XLA
-            elsewhere) | "pallas" (streaming padded grid; worklist when
-            respa_wl_entries > 0) | "pallas_sb" (superblock: per-substep
-            contiguous j-gather, one grid step per chunk) |
-            "pallas_interpret" | "xla".
-        respa_wl_entries: worklist-entry budget for the compacted Pallas
-            near sweep (``neighbor_budgets(..., with_wl=True)``); 0 keeps
-            the padded-table streaming kernel. Only the Pallas backends
-            consume it — w_blk stays the probed per-chunk bound either
-            way (the jbl table is the worklist's source).
+        respa_refresh: macro windows that share one neighbor geometry.
     """
 
     dt: float
@@ -232,8 +218,6 @@ class SimConfig:
     tree_near: str = "cells"
     tree_chunk: int = 32
     tree_pair_entries: tuple = ()
-    tree_wl_entries: int = 0
-    tree_wl_rj: int = 8
     hermite_fast_cap: int = 0
     hermite_max_substeps: int = 64
     hermite_rungs: int = 1
@@ -253,8 +237,6 @@ class SimConfig:
     respa_w_blk: int = 0
     respa_chunk: int = 32
     respa_rj: int = 4
-    respa_impl: str = "auto"
-    respa_wl_entries: int = 0
     respa_refresh: int = 1
 
     def __post_init__(self):
@@ -294,11 +276,8 @@ class SimConfig:
                 raise ValueError(
                     "respa_refresh > 1 requires collisions='none' (alive-"
                     "set changes mid-freeze would leave bodies slotless)")
-            if self.respa_impl not in ("auto", "pallas", "pallas_sb",
-                                       "pallas_interpret",
-                                       "xla"):
-                raise ValueError(f"bad respa_impl: {self.respa_impl!r}")
-        if self.force_impl not in ("auto", "dense", "chunked", "pallas", "pallas_sym", "mxu", "pallas_mxu", "pm", "p3m", "tree", "ring"):
+        if self.force_impl not in ("auto", "dense", "chunked", "pallas",
+                                   "mxu", "pm", "p3m", "tree", "ring"):
             raise ValueError(f"bad force_impl: {self.force_impl!r}")
         if self.tree_ws not in (1, 2):
             raise ValueError(f"tree_ws must be 1 or 2, got {self.tree_ws}")
@@ -306,16 +285,9 @@ class SimConfig:
         # (pairs/c64 at N >= 65536 with levels >= 7, else columns) before
         # any force layer sees the config; tree_acc_potential itself
         # rejects it
-        if self.tree_near not in ("auto", "cells", "columns", "pairs",
-                                  "kernel"):
+        if self.tree_near not in ("auto", "cells", "columns", "pairs"):
             raise ValueError(f"tree_near must be 'auto', 'cells', "
-                             f"'columns', 'pairs', or 'kernel', "
-                             f"got {self.tree_near}")
-        if self.tree_near == "kernel" and \
-                (self.tree_wl_rj * self.tree_chunk) % 128 != 0:
-            raise ValueError(
-                "tree_near='kernel' needs tree_wl_rj * tree_chunk to be a "
-                f"multiple of 128 (got {self.tree_wl_rj}*{self.tree_chunk})")
+                             f"'columns', or 'pairs', got {self.tree_near}")
         if self.tree_order not in (1, 2):
             raise ValueError(
                 f"tree_order must be 1 or 2, got {self.tree_order}")
@@ -347,7 +319,8 @@ class SimConfig:
                     f"{1 << (self.hermite_rungs - 1)}, got {ms}")
         if not (2 <= self.tree_levels <= 8):
             raise ValueError(f"tree_levels must be in [2, 8], got {self.tree_levels}")
-        if self.ring_block_impl not in ("auto", "pallas", "dense"):
+        if self.ring_block_impl not in ("auto", "pallas", "chunked",
+                                        "dense"):
             raise ValueError(f"bad ring_block_impl: {self.ring_block_impl!r}")
         if self.pm_box is not None and len(self.pm_box) != 4:
             raise ValueError("pm_box must be (cx, cy, cz, half)")

@@ -6,7 +6,7 @@ velocity arrows, mass-weighted barycenter marker and trail, equal axes,
 save/show. Works against anything with ``.objects`` and ``.history``
 (the engine facade or the lightweight view used by the video renderer) and
 against device-recorded :class:`~orbital_tpu.engine.rollout.Trajectory`
-buffers via :func:`plot_trajectory` — the TPU path plots one host transfer,
+buffers via :func:`plot_trajectory` — the device path plots one host transfer,
 not per-step Python state.
 """
 from __future__ import annotations

@@ -124,7 +124,7 @@ print("RESUME_OK")
 
 @pytest.fixture()
 def cluster_client():
-    """App in TPU-scale demo mode (tiny N for CPU CI)."""
+    """App in large-N demo mode (tiny N for CPU CI)."""
     saved = {k: os.environ.get(k) for k in
              ("SIM_SCENE", "SIM_N", "SIM_VIEW_MAX", "SIM_INITIAL_STEPS",
               "SIM_STEPS_PER_TICK", "SIM_DISABLE_THREAD")}
@@ -156,8 +156,7 @@ def cluster_client():
 
 def test_cluster_demo_mode(cluster_client):
     """SIM_SCENE=cluster serves a decimated live cluster through the same
-    payload schema: N_view bodies, advancing time, compiled rollout ticks
-    (VERDICT r1 weak #7: the app now demonstrates the engine's regime)."""
+    payload schema: N_view bodies, advancing time, compiled rollout ticks."""
     c, mod = cluster_client
     d = c.get("/api/state").get_json()
     assert len(d["bodies"]) == 64
@@ -245,7 +244,7 @@ def test_cluster_demo_tree_force(tree_cluster_client):
 
 
 def test_viewer_bootstrap_page_e2e(client):
-    """Headless end-to-end of the viewer bootstrap path (VERDICT r2 #10):
+    """Headless end-to-end of the viewer bootstrap path:
     the rendered page must carry a parseable ``window.__BOOTSTRAP__``
     whose schema is what main.js / fallback2d.js actually consume, and
     the module chain (main.js + the zero-egress 2D fallback) must be
@@ -292,7 +291,7 @@ def test_viewer_bootstrap_page_e2e(client):
 
 
 def test_cluster_snapshot_latency_and_memory_bound_65536(cluster_client):
-    """Long-uptime soak bound (VERDICT r3 #7): at SIM_N=65536 the
+    """Long-uptime soak bound: at SIM_N=65536 the
     per-tick snapshot path must stay cheap, and the trail history must be
     the FIXED preallocated float32 ring — no per-tick allocation growth
     (the old per-body Python-list dict cost ~40x the bytes in object

@@ -405,7 +405,7 @@ def test_nonfused_force_impls_keep_collisions(tmp_path):
     from orbital_tpu.engine.rollout import resolve_force_detect_fn
     from orbital_tpu.utils.config import SimConfig as SC
 
-    for impl in ("pallas_sym", "mxu", "pallas_mxu", "pm", "ring"):
+    for impl in ("mxu", "pm", "ring"):
         cfg = SC(dt=1e-3, G=1.0, eps2=1e-4, collisions="bounce",
                  force_impl=impl)
         assert resolve_force_detect_fn(cfg, 256) is None

@@ -90,7 +90,7 @@ def test_two_body_softened_values():
 
 
 def test_mxu_gram_formulation_matches_dense(rng):
-    """The MXU Gram-matrix path (measurement experiment, see DESIGN.md) is
+    """The Gram-matrix path (``force_impl="mxu"``, ops/mxu_forces.py) is
     correctness-checked at its documented accuracy (~1e-4 rel: the Gram
     identity cancels bits on close pairs)."""
     from orbital_tpu.ops.mxu_forces import pairwise_acc_mxu

@@ -284,8 +284,8 @@ def test_sharded_ensemble_step_2d_mesh(rng):
 
 
 def test_ring_force_pallas_blocks_match_dense(rng):
-    """The ring with Pallas per-round block kernels (interpret mode on the
-    CPU mesh) must agree with the unsharded dense force (VERDICT r1 #5)."""
+    """The ring with the GPU block kernel per round (interpret mode on the
+    CPU mesh) must agree with the unsharded dense force."""
     from jax.sharding import PartitionSpec as P
 
     n = 1024  # 8 shards x 128-body blocks (tile-aligned)
@@ -311,9 +311,32 @@ def test_ring_force_pallas_blocks_match_dense(rng):
     assert float(U) == pytest.approx(float(U_ref), rel=1e-5)
 
 
+def test_ring_force_chunked_blocks_match_dense(rng):
+    """The ring with row-chunked XLA blocks (the CPU's large-shard path)
+    agrees with the unsharded dense force."""
+    from jax.sharding import PartitionSpec as P
+
+    n = 1024
+    pos = rng.normal(size=(n, 3))
+    mass = rng.uniform(0.5, 1.5, n) / n
+    st = make_state(pos, np.zeros_like(pos), mass, precision="f32")
+    cfg = ot.SimConfig(dt=1e-3, G=1.0, eps2=1e-4, shard_axis="body",
+                       ring_block_impl="chunked", chunk=32)
+    a_ref, U_ref = resolve_force_fn(cfg.replace(force_impl="dense"), n)(
+        st.pos, st.mass, st.alive)
+    f = jax.jit(jax.shard_map(
+        ring_force_fn(cfg, 8), mesh=make_mesh(),
+        in_specs=(P("body", None), P("body"), P("body")),
+        out_specs=(P("body", None), P())))
+    a, U = f(st.pos, st.mass, st.alive)
+    np.testing.assert_allclose(np.asarray(a), np.asarray(a_ref),
+                               rtol=2e-5, atol=1e-6)
+    assert float(U) == pytest.approx(float(U_ref), rel=1e-5)
+
+
 def test_sharded_step_with_pallas_ring_blocks(rng):
-    """Full sharded KDK step with the Pallas ring-block path compiles and
-    matches the unsharded stepper."""
+    """Full sharded KDK step with the GPU ring-block kernel (interpret
+    mode) compiles and matches the unsharded stepper."""
     n = 1024
     pos = rng.normal(size=(n, 3))
     vel = rng.normal(size=(n, 3)) * 0.1
@@ -438,41 +461,9 @@ def test_sharded_tree_force_matches_single_device(rng):
 
 
 @pytest.mark.slow
-def test_sharded_tree_kernel_force_matches_single_device(rng):
-    """tree_sharded_force with near='kernel': each device runs its
-    1/n_shards slice of the Pallas worklist (interpret mode on CPU) and
-    the psum reassembles the single-device near field exactly."""
-    from jax.sharding import PartitionSpec as P
-    from orbital_tpu.ops.tree import tree_acc_potential, tree_sharded_force
-    from orbital_tpu.ops.tree_near_wl import tree_wl_budgets
-
-    st = _plummer_state(rng)
-    cfg = _tree_cfg(st)
-    kch, wle = tree_wl_budgets(st.pos, st.alive, levels=cfg.tree_levels,
-                               ws=cfg.tree_ws, chunk=32, rj=4)
-    kw = dict(G_grav=cfg.G, eps2=cfg.eps2, levels=cfg.tree_levels,
-              ws=cfg.tree_ws, near="kernel", chunk=32, max_chunks=kch,
-              wl_entries=wle, wl_rj=4)
-    a_ref, U_ref, ovf = tree_acc_potential(st.pos, st.mass, st.alive, **kw)
-    assert int(ovf) == 0
-
-    mesh = make_mesh()
-    f = jax.jit(jax.shard_map(
-        lambda p, m, a: tree_sharded_force(
-            p, m, a, axis_name="body", n_shards=8, **kw),
-        mesh=mesh, in_specs=(P("body", None), P("body"), P("body")),
-        out_specs=(P("body", None), P()),
-    ))
-    a, U = f(st.pos, st.mass, st.alive)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(a_ref),
-                               rtol=1e-6, atol=1e-7)
-    assert float(U) == pytest.approx(float(U_ref), rel=1e-6)
-
-
-@pytest.mark.slow
 def test_sharded_tree_step_matches_unsharded(rng):
     """A full sharded KDK step with force_impl='tree' equals the
-    single-device tree step (VERDICT r1 next-round #4)."""
+    single-device tree step."""
     st = _plummer_state(rng)
     cfg = _tree_cfg(st)
     st = ot.init_forces(st, cfg)
@@ -493,7 +484,7 @@ def test_sharded_tree_step_matches_unsharded(rng):
 def test_sharded_rollout_matches_unsharded(cluster_state):
     """Multi-step sharded rollout (scan of the sharded step inside
     shard_map, strided recording) vs the single-device rollout over 100
-    steps (VERDICT r1 next-round #5)."""
+    steps."""
     from orbital_tpu.engine.rollout import rollout
     from orbital_tpu.parallel.sharded import make_sharded_rollout
 
@@ -723,7 +714,7 @@ def test_simulate_mesh_matches_single_device(rng):
 
 
 def test_sharded_bounce_skip_parity(rng):
-    """Contact-free steps must take the gated skip branch (VERDICT r2 #8):
+    """Contact-free steps must take the gated skip branch:
     the sharded bounce step is BIT-equal to the sharded collisions='none'
     step when nothing touches — the detection ring gates the impulse ring
     exactly like the single-chip fused-detect path cond-skips the
@@ -758,8 +749,7 @@ def test_sharded_bounce_skip_parity(rng):
 
 
 def test_sharded_ensemble_merge(rng):
-    """merge now composes with the vmapped (ensemble x body) mesh
-    (VERDICT r2 #5): the gather + global merge run unconditionally per
+    """merge now composes with the vmapped (ensemble x body) mesh: the gather + global merge run unconditionally per
     step (vmap turns the contact gate into select anyway) and must match
     per-member unsharded merge stepping."""
     from orbital_tpu.parallel.ensemble import make_ensemble
@@ -801,8 +791,7 @@ def test_sharded_ensemble_merge(rng):
 
 
 def test_sharded_resolve_matches_unsharded(rng):
-    """collisions='resolve' under body sharding (VERDICT r2 guard
-    lifted): contact-gated all_gather + the UNCHANGED outcome model,
+    """collisions='resolve' under body sharding: contact-gated all_gather + the UNCHANGED outcome model,
     replicated rolls (the step counter is replicated, so the PRNG fold
     is identical mesh-wide), sliced back per shard — must match the
     unsharded resolve step."""
@@ -894,7 +883,7 @@ def test_sharded_ensemble_resolve(rng):
 def test_sharded_respa_rollout_matches_unsharded(rng):
     """Multi-chip multirate (RESPA) rollout: ring-sharded closing exact
     evaluation + chunk-sharded near sweeps inside shard_map must
-    reproduce the single-device respa_rollout at f64 (VERDICT r3 #3).
+    reproduce the single-device respa_rollout at f64.
     Only summation order differs (the ring accumulates the far force in
     shard blocks), so f64 trajectories agree to tight tolerances."""
     from orbital_tpu.engine.multirate import respa_rollout
@@ -913,7 +902,7 @@ def test_sharded_respa_rollout_matches_unsharded(rng):
                     respa_k=4, respa_rc=rc, respa_cell=cell,
                     respa_m=m_grid, respa_max_chunks=k_ch,
                     respa_w_blk=w_blk, respa_chunk=8, respa_rj=16,
-                    respa_impl="xla", respa_refresh=2)
+                    respa_refresh=2)
     st = _init(make_state(pos, vel, mass, precision="f64"), cfg)
 
     ref_final, ref_traj, ref_diag = respa_rollout(st, cfg, 32,
@@ -970,7 +959,7 @@ def test_simulate_mesh_respa_matches_single_device(rng):
 
 @pytest.mark.slow
 def test_multiprocess_sharded_step():
-    """The DCN path across REAL process boundaries (VERDICT r4 #6): two
+    """The DCN path across REAL process boundaries: two
     jax.distributed processes x 4 virtual CPU devices form one 8-device
     body mesh, so the sharded step's ppermute ring and psums cross the
     inter-process transport. Each worker checks its addressable shards

@@ -217,8 +217,8 @@ def _pm_scene(rng, n=256):
 
 
 def test_simulate_warns_when_pm_softening_below_cell_spacing(rng):
-    """PM's collisionless contract (DESIGN.md §10): eps well below the
-    mesh cell spacing is the measured 9.1e-3-drift regime — simulate()
+    """PM's collisionless contract (DESIGN.md): eps well below the
+    mesh cell spacing is the fluctuation-dominated drift regime — simulate()
     must warn at setup instead of silently delivering 1e-2-grade drift.
     reference has no mesh solver; this guards our extension's contract."""
     arrays = _pm_scene(rng)

@@ -2,9 +2,8 @@
 
 Layers tested bottom-up:
   * switch algebra (limits, smoothness, conservative shell term)
-  * geometry-based sweeps vs the dense O(N^2) switched oracle —
-    XLA table sweep and the Pallas kernel (interpret mode), including
-    budget-overflow accounting
+  * the geometry-based XLA table sweep vs the dense O(N^2) switched
+    oracle, including budget-overflow accounting
   * the macro stepper: K=1 equivalence with plain KDK, symplectic
     long-horizon energy behavior, momentum conservation, ballistic
     fallback under deliberately starved budgets, skin-violation counter
@@ -27,7 +26,6 @@ from orbital_tpu.ops.neighbor import (SENTINEL_POS, near_acc_dense,
                                       near_acc_slots, neighbor_budgets,
                                       neighbor_geometry, pack_slots,
                                       switch_terms, unpack_slots)
-from orbital_tpu.ops.neighbor_pallas import near_acc_slots_pallas
 from orbital_tpu.utils.config import SimConfig
 
 F32 = jnp.float32
@@ -120,105 +118,6 @@ def test_sweep_matches_dense_oracle(seed, n):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("resident", [False, True])
-def test_pallas_kernel_matches_xla_sweep(resident):
-    n = 400
-    pos, _, mass = _cluster(n, 5)
-    alive = np.ones(n, bool)
-    r1, rc, G, eps2 = 0.2, 0.4, 1.0, 1e-4
-    geom, ch, (m_grid, k_ch, w_blk, n_slots) = _geometry_setup(
-        pos, mass, alive, rc, cell=0.6)
-    acc_x, pe_x = near_acc_slots(*ch, geom["jbl"], r1=r1, rc=rc, G=G,
-                                 eps2=eps2, chunk=8, rj=16)
-    acc_p, pe_p = near_acc_slots_pallas(*ch, geom["jbl"], r1=r1, rc=rc,
-                                        G=G, eps2=eps2, chunk=8, rj=16,
-                                        interpret=True, resident=resident)
-    np.testing.assert_allclose(np.asarray(acc_p), np.asarray(acc_x),
-                               rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(pe_p), np.asarray(pe_x),
-                               rtol=1e-5, atol=1e-7)
-
-
-def test_worklist_kernel_matches_xla_sweep():
-    """Compacted-worklist Pallas sweep (interpret) == XLA table sweep,
-    including the visited-row zero mask and q-truncation accounting."""
-    from orbital_tpu.ops.neighbor_pallas import near_acc_slots_pallas_wl
-
-    n = 400
-    pos, _, mass = _cluster(n, 5)
-    alive = np.ones(n, bool)
-    r1, rc, G, eps2 = 0.2, 0.4, 1.0, 1e-4
-    cell, chunk, rj = 0.6, 8, 16
-    m_grid, k_ch, w_blk, q = neighbor_budgets(
-        pos, alive, cell=cell, chunk=chunk, rj=rj, with_wl=True)
-    geom = neighbor_geometry(jnp.asarray(pos, F32), jnp.asarray(alive),
-                             cell=cell, m_grid=m_grid, chunk=chunk,
-                             max_chunks=k_ch, w_blk=w_blk, rj=rj,
-                             wl_entries=q)
-    assert int(geom["q_overflow"]) == 0
-    n_slots = (k_ch + rj) * chunk
-    pk = lambda v, fill: pack_slots(geom["slot"], jnp.asarray(v, F32),
-                                    n_slots, fill)
-    ch = (pk(pos[:, 0], SENTINEL_POS), pk(pos[:, 1], SENTINEL_POS),
-          pk(pos[:, 2], SENTINEL_POS), pk(mass, 0.0))
-    kw = dict(r1=r1, rc=rc, G=G, eps2=eps2, chunk=chunk, rj=rj)
-    acc_x, pe_x = near_acc_slots(*ch, geom["jbl"], **kw)
-    acc_w, pe_w = near_acc_slots_pallas_wl(
-        *ch, geom["wl_i"], geom["wl_jb"], geom["wl_first"],
-        geom["wl_row_live"], interpret=True, **kw)
-    np.testing.assert_allclose(np.asarray(acc_w), np.asarray(acc_x),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(pe_w), np.asarray(pe_x),
-                               rtol=1e-5, atol=1e-6)
-    # starved budget: overflow counted, unvisited chunks exactly zero
-    q2 = max(8, int(q) // 3)
-    g2 = neighbor_geometry(jnp.asarray(pos, F32), jnp.asarray(alive),
-                           cell=cell, m_grid=m_grid, chunk=chunk,
-                           max_chunks=k_ch, w_blk=w_blk, rj=rj,
-                           wl_entries=q2)
-    assert int(g2["q_overflow"]) > 0
-    acc2, _ = near_acc_slots_pallas_wl(
-        *ch, g2["wl_i"], g2["wl_jb"], g2["wl_first"], g2["wl_row_live"],
-        interpret=True, **kw)
-    unvisited = ~np.asarray(g2["wl_row_live"])
-    assert unvisited.any()
-    assert np.all(np.asarray(acc2)[unvisited] == 0.0)
-
-
-def test_macro_worklist_matches_table_sweep():
-    """One macro step with the worklist sweep == the jbl-table sweep
-    (same geometry, same physics — only the kernel's iteration order
-    differs)."""
-    from orbital_tpu.engine.multirate import make_respa_macro
-    from orbital_tpu.engine.rollout import resolve_force_fn
-
-    n = 300
-    pos, vel, mass = _cluster(n, 11)
-    eps2 = 1e-4
-    rc, cell, chunk, rj = 0.3, 0.6, 8, 16
-    m_grid, k_ch, w_blk, q = neighbor_budgets(
-        pos, cell=cell, chunk=chunk, rj=rj, with_wl=True)
-    common = dict(dt=1e-3, G=1.0, eps2=eps2, integrator="respa",
-                  respa_k=4, respa_rc=rc, respa_cell=cell,
-                  respa_m=m_grid, respa_max_chunks=k_ch,
-                  respa_w_blk=w_blk, respa_chunk=chunk, respa_rj=rj)
-    outs = []
-    for wl in (0, q):
-        cfg = SimConfig(respa_impl="pallas_interpret",
-                        respa_wl_entries=wl, **common)
-        st = init_forces(make_state(pos, vel, mass, precision="f32"), cfg)
-        macro = make_respa_macro(cfg, resolve_force_fn(cfg, n))
-        new, diag = jax.jit(macro)(st)
-        assert int(diag["overflow"]) == 0
-        outs.append(new)
-    np.testing.assert_allclose(np.asarray(outs[0].pos),
-                               np.asarray(outs[1].pos), rtol=1e-6,
-                               atol=1e-7)
-    np.testing.assert_allclose(np.asarray(outs[0].vel),
-                               np.asarray(outs[1].vel), rtol=1e-6,
-                               atol=1e-6)
-
-
 def test_dynamic_rollout_matches_static():
     """respa_rollout_dyn (device trip count, one compile for every chunk
     size) == respa_rollout_jit chunked to the same macro total."""
@@ -228,13 +127,11 @@ def test_dynamic_rollout_matches_static():
     n = 256
     pos, vel, mass = _cluster(n, 0)
     rc, cell = 0.3, 0.6
-    m_grid, k_ch, w_blk, q = neighbor_budgets(
-        pos, cell=cell, chunk=8, rj=16, with_wl=True)
+    m_grid, k_ch, w_blk = neighbor_budgets(pos, cell=cell, chunk=8, rj=16)
     cfg = SimConfig(dt=1e-3, G=1.0, eps2=1e-4, integrator="respa",
                     respa_k=4, respa_rc=rc, respa_cell=cell,
                     respa_m=m_grid, respa_max_chunks=k_ch,
-                    respa_w_blk=w_blk, respa_chunk=8, respa_rj=16,
-                    respa_wl_entries=q)
+                    respa_w_blk=w_blk, respa_chunk=8, respa_rj=16)
     st = init_forces(make_state(pos, vel, mass, precision="f32"), cfg)
     f1, _, _ = respa_rollout_jit(st, cfg, 16)
     f2, _ = respa_rollout_dyn(st, cfg, 2)
@@ -245,6 +142,32 @@ def test_dynamic_rollout_matches_static():
                                rtol=1e-7, atol=1e-8)
     np.testing.assert_allclose(np.asarray(f1.vel), np.asarray(f2.vel),
                                rtol=1e-7, atol=1e-8)
+
+
+def test_near_dense_oracle_highest_matches_slot_sweep():
+    """The dense oracle's contraction asks for HIGHEST precision (on a
+    GPU a default float32 einsum may run in TF32, about three decimal
+    digits), and at that precision it agrees with the slot sweep to
+    float32 rounding: 1e-5 of the largest acceleration."""
+    n = 300
+    pos, _, mass = _cluster(n, 9)
+    alive = np.ones(n, bool)
+    r1, rc, G, eps2 = 0.15, 0.3, 1.0, 1e-4
+    args = (jnp.asarray(pos, F32), jnp.asarray(mass, F32),
+            jnp.asarray(alive))
+    kw = dict(r1=r1, rc=rc, G=G, eps2=eps2)
+    jaxpr = str(jax.make_jaxpr(lambda p, m, a: near_acc_dense(
+        p, m, a, **kw))(*args))
+    assert "dot_general" in jaxpr and "HIGHEST" in jaxpr
+    geom, ch, (m_grid, k_ch, w_blk, n_slots) = _geometry_setup(
+        pos, mass, alive, rc, cell=0.45)
+    acc_s, _ = near_acc_slots(*ch, geom["jbl"], chunk=8, rj=16, **kw)
+    acc = unpack_slots(geom["slot"], acc_s, jnp.zeros((n, 3), F32),
+                       k_ch * 8)
+    want, _ = near_acc_dense(*args, **kw)
+    scale = float(jnp.max(jnp.abs(want)))
+    np.testing.assert_allclose(np.asarray(acc), np.asarray(want),
+                               atol=1e-5 * scale)
 
 
 def test_budget_overflow_counted():
@@ -259,7 +182,7 @@ def test_budget_overflow_counted():
     assert dropped >= int(geom["cap_overflow"])
 
 
-def _make_cfg(n_pos, vel, mass, *, k, rc=None, dt=1e-3, impl="xla",
+def _make_cfg(n_pos, vel, mass, *, k, rc=None, dt=1e-3,
               precision="ds32", **kw):
     pos = n_pos
     eps2 = 1e-4
@@ -269,8 +192,7 @@ def _make_cfg(n_pos, vel, mass, *, k, rc=None, dt=1e-3, impl="xla",
     cfg = SimConfig(dt=dt, G=1.0, eps2=eps2, integrator="respa",
                     respa_k=k, respa_rc=rc, respa_cell=cell,
                     respa_m=m_grid, respa_max_chunks=k_ch,
-                    respa_w_blk=w_blk, respa_chunk=8, respa_rj=16,
-                    respa_impl=impl, **kw)
+                    respa_w_blk=w_blk, respa_chunk=8, respa_rj=16, **kw)
     state = make_state(pos, vel, mass, precision=precision)
     return cfg, init_forces(state, cfg)
 
@@ -355,7 +277,7 @@ def test_ballistic_fallback_under_starved_budgets():
     cfg = SimConfig(dt=1e-3, G=1.0, eps2=eps2, integrator="respa",
                     respa_k=4, respa_rc=0.3, respa_cell=0.6, respa_m=10,
                     respa_max_chunks=16, respa_w_blk=4, respa_chunk=8,
-                    respa_rj=16, respa_impl="xla")
+                    respa_rj=16)
     state = init_forces(make_state(pos, vel, mass, precision="ds32"), cfg)
     final, _, diag = respa_rollout(state, cfg, 4)
     assert int(diag["overflow"]) > 0
@@ -400,46 +322,6 @@ def test_recording_and_simulate_end_to_end():
                       integrator="respa", respa_k=4, record_every=8)
     assert res.pos.shape[0] == 2
     assert np.isfinite(res.energy_drift)
-
-
-def test_macro_superblock_matches_table_sweep(monkeypatch):
-    """One macro step with the superblock sweep (interpret) == the
-    XLA-table sweep — gather layout and kernel tiling only."""
-    from orbital_tpu.engine.multirate import make_respa_macro
-    from orbital_tpu.engine.rollout import resolve_force_fn
-    import functools
-    from orbital_tpu.engine import multirate as mr
-
-    n = 300
-    pos, vel, mass = _cluster(n, 11)
-    eps2 = 1e-4
-    rc, cell, chunk, rj = 0.3, 0.6, 8, 16
-    m_grid, k_ch, w_blk = neighbor_budgets(
-        pos, cell=cell, chunk=chunk, rj=rj)
-    common = dict(dt=1e-3, G=1.0, eps2=eps2, integrator="respa",
-                  respa_k=4, respa_rc=rc, respa_cell=cell,
-                  respa_m=m_grid, respa_max_chunks=k_ch,
-                  respa_w_blk=w_blk, respa_chunk=chunk, respa_rj=rj)
-    outs = []
-    for impl in ("xla", "pallas_sb"):
-        cfg = SimConfig(respa_impl=impl, **common)
-        if impl == "pallas_sb":
-            # run the Pallas kernel in interpret mode on CPU
-            monkeypatch.setattr(
-                mr, "near_acc_slots_pallas_sb",
-                functools.partial(mr.near_acc_slots_pallas_sb,
-                                  interpret=True))
-        st = init_forces(make_state(pos, vel, mass, precision="f32"), cfg)
-        macro = make_respa_macro(cfg, resolve_force_fn(cfg, n))
-        new, diag = jax.jit(macro)(st)
-        assert int(diag["overflow"]) == 0
-        outs.append(new)
-    np.testing.assert_allclose(np.asarray(outs[0].pos),
-                               np.asarray(outs[1].pos), rtol=1e-6,
-                               atol=1e-7)
-    np.testing.assert_allclose(np.asarray(outs[0].vel),
-                               np.asarray(outs[1].vel), rtol=1e-6,
-                               atol=1e-6)
 
 
 def test_geometry_refresh_equivalence_and_skin_guard():

@@ -418,7 +418,7 @@ def test_tree_class_probe_sizes_budgets(gauss_blob):
     """tree_class_probe counts the same occupancy classes the near-field
     split uses; explicit probe-sized max_big/max_frontier budgets leave
     results bit-identical with zero overflow, and starved budgets COUNT
-    the dropped cells instead of silently losing pairs (VERDICT r1 #2)."""
+    the dropped cells instead of silently losing pairs."""
     import jax.numpy as jnp
     from orbital_tpu.ops.tree import tree_class_probe
 
@@ -950,157 +950,6 @@ def test_tree_pairs_pathological_distributions(rng):
         np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_c),
                                    atol=1e-5 * scale)
         assert float(U_p) == pytest.approx(float(U_c), rel=1e-6)
-
-
-def _wl_budgets(pos, levels, ws=1, chunk=32, rj=4, alive=None):
-    import jax.numpy as jnp
-
-    from orbital_tpu.ops.tree_near_wl import tree_wl_budgets
-
-    return tree_wl_budgets(
-        jnp.asarray(pos), None if alive is None else jnp.asarray(alive),
-        levels=levels, ws=ws, chunk=chunk, rj=rj)
-
-
-@pytest.mark.parametrize(
-    "ws,chunk,rj",
-    [(1, 32, 4),
-     pytest.param(1, 64, 2, marks=pytest.mark.slow),
-     pytest.param(2, 32, 4, marks=pytest.mark.slow)])
-def test_tree_kernel_match_cells(rng, ws, chunk, rj):
-    """near="kernel" (Pallas worklist sweep, contiguous DMA streams,
-    in-kernel cell-band masking) computes the SAME near field as
-    near="cells" on a concentrated blob (interpret mode on CPU)."""
-    n, levels = 1024, 4
-    pos = (rng.normal(0, 1, (n, 3))
-           * rng.uniform(0.05, 1.0, (n, 1))).astype(np.float32)
-    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
-    occ, nc = tree_occupancy_probe(pos, levels=levels)
-    a_c, U_c, ov_c = tree_acc_potential(
-        pos, mass, G_grav=1.0, eps2=1e-4, levels=levels, ws=ws,
-        capacity=int(occ) + 8, max_cells=int(nc) + 32, near="cells")
-    kch, wle = _wl_budgets(pos, levels, ws=ws, chunk=chunk, rj=rj)
-    a_k, U_k, ov_k = tree_acc_potential(
-        pos, mass, G_grav=1.0, eps2=1e-4, levels=levels, ws=ws,
-        max_chunks=kch, chunk=chunk, wl_entries=wle, wl_rj=rj,
-        near="kernel")
-    assert int(ov_c) == 0 and int(ov_k) == 0
-    scale = np.sqrt(np.mean(np.sum(np.asarray(a_c) ** 2, -1)))
-    np.testing.assert_allclose(np.asarray(a_k), np.asarray(a_c),
-                               atol=2e-6 * scale)
-    assert float(U_k) == pytest.approx(float(U_c), rel=1e-6)
-
-
-@pytest.mark.slow
-def test_tree_kernel_overflow_counted(rng):
-    """Starved worklist and starved chunk-table budgets each count the
-    excluded bodies instead of silently dropping them. (No-double-count
-    parity vs cells mode is covered by test_tree_kernel_match_cells.)"""
-    n, levels = 1024, 4
-    pos = (rng.normal(0, 1, (n, 3))
-           * rng.uniform(0.05, 1.0, (n, 1))).astype(np.float32)
-    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
-    import jax.numpy as jnp
-
-    from orbital_tpu.ops.tree_near_wl import tree_wl_probe
-
-    # raw probe, no headroom: halving these MUST starve the sweep
-    tot, ent = tree_wl_probe(jnp.asarray(pos), levels=levels, ws=1,
-                             chunk=32, rj=4)
-    tot, ent = int(tot), int(ent)
-    kw = dict(G_grav=1.0, eps2=1e-4, levels=levels, ws=1, near="kernel",
-              wl_rj=4)
-    _, _, ov = tree_acc_potential(pos, mass, max_chunks=tot + 4,
-                                  wl_entries=max(1, ent // 2), **kw)
-    assert int(ov) > 0
-    _, _, ov2 = tree_acc_potential(pos, mass, max_chunks=max(1, tot // 2),
-                                   wl_entries=ent + 64, **kw)
-    assert int(ov2) > 0
-
-
-@pytest.mark.slow
-def test_tree_kernel_dead_bodies_inert(rng):
-    """Masked bodies exert no force, feel no force, and the masked run
-    matches running on the alive subset."""
-    n, levels = 1024, 4
-    pos = (rng.normal(0, 1, (n, 3))
-           * rng.uniform(0.05, 1.0, (n, 1))).astype(np.float32)
-    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
-    alive = np.ones(n, bool)
-    alive[::3] = False
-    kch, wle = _wl_budgets(pos, levels, alive=alive)
-    a_m, U_m, ov_m = tree_acc_potential(
-        pos, mass, alive, G_grav=1.0, eps2=1e-4, levels=levels, ws=1,
-        max_chunks=kch, wl_entries=wle, wl_rj=4, near="kernel")
-    sub = alive.nonzero()[0]
-    t2, e2 = _wl_budgets(pos[sub], levels)
-    a_s, U_s, ov_s = tree_acc_potential(
-        pos[sub], mass[sub], G_grav=1.0, eps2=1e-4, levels=levels, ws=1,
-        max_chunks=t2, wl_entries=e2, wl_rj=4, near="kernel")
-    assert int(ov_m) == 0 and int(ov_s) == 0
-    a_m = np.asarray(a_m)
-    np.testing.assert_array_equal(a_m[~alive], 0.0)
-    scale = np.sqrt(np.mean(np.sum(np.asarray(a_s) ** 2, -1)))
-    np.testing.assert_allclose(a_m[alive], np.asarray(a_s),
-                               atol=2e-6 * scale)
-    assert float(U_m) == pytest.approx(float(U_s), rel=1e-6)
-
-
-@pytest.mark.slow
-def test_simulate_tree_kernel(gauss_blob):
-    """simulate(tree_near='kernel') probe-sizes max_chunks/wl_entries and
-    matches the cells path over a short rollout."""
-    pos, mass = gauss_blob
-    objs = [ot.Object(mass=float(m) * 1e4, radius=1e-3,
-                      velocity=np.zeros(3),
-                      coordinates=ot.Coordinates(*p.tolist()))
-            for m, p in zip(mass[:256], pos[:256])]
-    r_cells = ot.simulate(objs, steps=10, dt=1e-4, softening=1e-2,
-                          force_impl="tree", tree_levels=4,
-                          precision="f32")
-    r_k = ot.simulate(objs, steps=10, dt=1e-4, softening=1e-2,
-                      force_impl="tree", tree_levels=4,
-                      tree_near="kernel", tree_wl_rj=4, precision="f32")
-    assert r_k.config.tree_near == "kernel"
-    assert r_k.config.tree_wl_entries > 0
-    scale = np.sqrt(np.mean(np.sum(r_cells.pos[-1] ** 2, -1)))
-    np.testing.assert_allclose(r_k.pos[-1], r_cells.pos[-1],
-                               atol=1e-4 * scale)
-
-
-@pytest.mark.slow
-def test_tree_kernel_pathological_distributions(rng):
-    """The worklist geometry survives one tall column (block rounding +
-    watermark dedup at their most load-bearing) and a one-body-per-cell
-    lattice (every run shorter than a block)."""
-    levels = 4
-    M = 2 ** levels
-    n1 = 512
-    z = np.linspace(-0.95, 0.95, n1)
-    pos1 = np.stack([np.full(n1, 0.01), np.full(n1, 0.02), z],
-                    axis=1).astype(np.float32)
-    g = np.arange(8)
-    xx, yy, zz = np.meshgrid(g, g, g, indexing="ij")
-    cc = np.stack([xx, yy, zz], -1).reshape(-1, 3)
-    pos2 = (-1.0 + (cc + 0.5) * (2.0 / M)
-            + rng.uniform(-0.2, 0.2, (512, 3)) * (2.0 / M)
-            ).astype(np.float32)
-    for pos in (pos1, pos2):
-        n = len(pos)
-        mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
-        occ, nc = tree_occupancy_probe(pos, levels=levels)
-        a_c, U_c, ov_c = tree_acc_potential(
-            pos, mass, G_grav=1.0, eps2=1e-4, levels=levels, ws=1,
-            capacity=int(occ) + 8, max_cells=int(nc) + 32, near="cells")
-        kch, wle = _wl_budgets(pos, levels)
-        a_k, U_k, ov_k = tree_acc_potential(
-            pos, mass, G_grav=1.0, eps2=1e-4, levels=levels, ws=1,
-            max_chunks=kch, wl_entries=wle, wl_rj=4, near="kernel")
-        assert int(ov_c) == 0 and int(ov_k) == 0
-        scale = np.sqrt(np.mean(np.sum(np.asarray(a_c) ** 2, -1)))
-        np.testing.assert_allclose(np.asarray(a_k), np.asarray(a_c),
-                                   atol=1e-5 * scale)
-        assert float(U_k) == pytest.approx(float(U_c), rel=1e-6)
 
 
 @pytest.mark.slow
